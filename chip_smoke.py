@@ -1,4 +1,4 @@
-"""On-card smoke run of sleipnir_tpu_torch: kernels and main path.
+"""On-card smoke run of sleipnir_tpu_torch: kernels and its paths.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -6,22 +6,35 @@ Run from the repository root on a machine with one CUDA card:
 
 Phases, each of which exits non-zero on failure:
   1. device: CUDA must be available; prints the card's name and power limit;
-  2. build: compiles the CUDA kernels from csrc/ with nvcc for sm_90a;
+  2. build: compiles every CUDA source in csrc/ with nvcc for sm_90a, one
+     nvcc per source, all at once;
   3. kernels: the block-tridiagonal factor (K1) and solve (K2) kernels
      against their plain torch versions on CUDA tensors, inertia exactly
-     and solutions to 1e-10 relative, and both timed with CUDA events at
-     the main path's shapes;
+     and solutions to 1e-10 relative, at the main path's shapes and at the
+     long horizons where the TPU takes its chunked kernels (K3a/K3b); each
+     timed with CUDA events;
   4. main path: the cart-pole swing-up at N=100 solved on the card to the
      1e-8 tolerance, once and then twice timed from the initial guess; the
      result must satisfy the RK4 physics oracle and reach the target
-     state, and both kernels must have been launched by the solves.
+     state, and both kernels must have been launched by the solves;
+  5. precision probe: `sleipnir_tpu_torch.tools.dd_probe` on the card; its
+     double-float kernels must equal their plain version bit for bit;
+  6. long horizon: the flywheel at N=5000 solved on the card, once and
+     then once timed from the zero guess; it must reach SUCCESS, pass the
+     numpy oracle, and launch K1/K2 at K=5001;
+  7. restoration: banded feasibility restoration from a strongly
+     infeasible cart-pole N=2000 iterate; it must hand the iterate back
+     ("resume") with a violation below 0.95 of the start's, running K1/K2
+     on the 37-wide restoration system.
 
-The last two lines of output are a JSON object of per-kernel results and
-a JSON object naming the device.
+Launch counts are reset just before each path (phases 4-7) and read just
+after it. The last two lines of output are a JSON object of per-kernel
+results and a JSON object naming the device.
 """
 
 from __future__ import annotations
 
+import collections
 import json
 import math
 import subprocess
@@ -41,6 +54,27 @@ KERNEL_CASES = [  # (name, B, K, w, r); r = 0 is a vector right-hand side
     ("restoration-width", 2, 40, 37, 0),
     ("small", 1, 7, 3, 0),
 ]
+#: Long horizons (B, K, w, system): the TPU takes its chunked kernels
+#: here. The flywheel at N=5000 factors (4, 5001, 4) and solves
+#: (1, 5001, 4); cart-pole's restoration at N=2000 factors (4, 2001, 37).
+#: Random 37-wide stages chained over 2001 stages make a system so
+#: ill-conditioned that two correct f64 orderings differ near 1e-10, so
+#: that width takes well-conditioned stages of mixed inertia instead.
+LONG_CASES = [
+    (1, 5001, 3, "random"), (4, 5001, 4, "random"), (4, 1001, 13, "random"),
+    (4, 5001, 13, "random"), (4, 2001, 37, "conditioned"),
+]
+FLYWHEEL_N = 5000
+RESTORATION_N, RESTORATION_SEED, RESTORATION_SCALE = 2000, 7, 0.3
+#: Stage rows K·w above which the TPU package takes its chunked kernels:
+#: ⌈K·w/8⌉·4096 bytes over its 3.5 MB single-shot budget
+#: (sleipnir_tpu/ops/pallas_banded.py:471, :491-493).
+TPU_CHUNKED_ROWS = 6833
+#: Peak rates of one H100 SXM at 700 W (NVIDIA's data sheet): HBM3 bytes
+#: per second, and float64 (tensor-core) and float32 operations per second.
+HBM_BYTES_PER_S = 3.35e12
+F64_PER_S = 67e12
+F32_PER_S = 67e12
 
 
 def fail(phase: str, msg: str) -> None:
@@ -57,6 +91,17 @@ def random_system(rng, B, K, w, r):
     E = rng.standard_normal((B, K - 1, w, w))
     b = rng.standard_normal((B, K, w, r) if r else (B, K, w))
     return D, E, b
+
+
+def conditioned_system(rng, B, K, w):
+    """Symmetric stages Q diag(λ) Qᵀ with |λ| in [20, 40] of random sign,
+    coupled by E = 0.5·randn: every Schur complement keeps its
+    eigenvalues far from zero, whatever K."""
+    Q, _ = np.linalg.qr(rng.standard_normal((B, K, w, w)))
+    lam = rng.choice([-1.0, 1.0], (B, K, w)) * rng.uniform(20.0, 40.0, (B, K, w))
+    D = np.einsum("bkij,bkj,bklj->bkil", Q, lam, Q)
+    D = 0.5 * (D + np.swapaxes(D, 2, 3))
+    return D, 0.5 * rng.standard_normal((B, K - 1, w, w)), rng.standard_normal((B, K, w))
 
 
 def ipm_like_chain(rng):
@@ -92,6 +137,41 @@ def cuda_ms(fn, reps: int = 50) -> float:
     return start.elapsed_time(end) / reps
 
 
+def rel_diff(x, ref) -> float:
+    return ((x - ref).abs().max() / ref.abs().max()).item()
+
+
+def bound(ops: float, op_rate: float, nbytes: float):
+    """The least time the card could take (ms) and what sets it."""
+    t_ops, t_bytes = ops / op_rate, nbytes / HBM_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes), "operations" if t_ops > t_bytes else "bytes")
+
+
+def factor_bound(B, K, w):
+    """K1's function: per stage an LU (2w³/3) and an LDLᵀ (w³/3) of S_k,
+    X_k = S_k⁻¹E_kᵀ (2w³) and S_{k+1} = D_{k+1} − E_k X_k (2w³) in f64;
+    D and E read once, LU, X, d (f64) and perm (i32) written once."""
+    ops = B * K * 5.0 * w**3
+    nbytes = 8 * B * ((2 * K - 1) * w * w * 2 + K * w) + 4 * B * K * w
+    return bound(ops, F64_PER_S, nbytes)
+
+
+def solve_bound(B, K, w, r=1):
+    """K2's function: per stage and right-hand side Xₖᵀy, the LU solve and
+    X x (6w² f64 operations); LU, X, perm and b read once, x written once."""
+    ops = B * K * r * 6.0 * w * w
+    nbytes = 8 * B * ((2 * K - 1) * w * w + 2 * K * w * r) + 4 * B * K * w
+    return bound(ops, F64_PER_S, nbytes)
+
+
+def long_launches(shape_counts, kind):
+    """Launches of `kind` at shapes where the TPU takes its chunked kernels."""
+    return {
+        f"B={B},K={K},w={w}": n for (k, B, K, w), n in shape_counts.items()
+        if k == kind and K * w >= TPU_CHUNKED_ROWS
+    }
+
+
 def main() -> None:
     # -- 1. device --------------------------------------------------------
     if not torch.cuda.is_available():
@@ -108,27 +188,37 @@ def main() -> None:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {kind}", flush=True)
 
     from sleipnir_tpu_torch import ExitStatus
+    from sleipnir_tpu_torch.models import flywheel
     from sleipnir_tpu_torch.models.cart_pole import (
         cart_pole_problem,
         dynamics_numpy,
         rk4_numpy,
     )
     from sleipnir_tpu_torch.ops import block_tridiag as plain
-    from sleipnir_tpu_torch.ops import cuda_banded
+    from sleipnir_tpu_torch.ops import cuda_banded, cuda_build, cuda_dd_probe
+    from sleipnir_tpu_torch.ops import dd as plain_dd
+    from sleipnir_tpu_torch.optimization.solver.funcs import ScalingArrays
     from sleipnir_tpu_torch.optimization.solver.kkt_banded import EPS_INERTIA
+    from sleipnir_tpu_torch.optimization.solver.options import Options
+    from sleipnir_tpu_torch.optimization.solver.util.feasibility_restoration import restore
+    from sleipnir_tpu_torch.tools import dd_probe
 
     # -- 2. build ---------------------------------------------------------
     t0 = time.monotonic()
+    sources = [cuda_banded.SOURCE, cuda_dd_probe.SOURCE]
     try:
-        lib, log = cuda_banded.build(verbose=True)
+        built = cuda_build.build(sources, verbose=True)
     except RuntimeError as err:
         fail("build", str(err))
-    print(f"build: {time.monotonic() - t0:.2f} s -> {lib.name}", flush=True)
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip(), flush=True)
+    print(f"build: {time.monotonic() - t0:.2f} s -> {', '.join(lib.name for lib, _ in built)}",
+          flush=True)
+    for src, (_lib, log) in zip(sources, built):
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {src.path.name}:", line.strip(), flush=True)
 
     # -- 3. kernels against their plain versions --------------------------
+    t_phase = time.monotonic()
     rng = np.random.default_rng(2024)
     cases = [(name, *random_system(rng, B, K, w, r)) for name, B, K, w, r in KERNEL_CASES]
     cases.append(("ipm-like-chain", *ipm_like_chain(rng)))
@@ -141,11 +231,13 @@ def main() -> None:
         torch.cuda.synchronize()
         ik = [t.tolist() for t in plain.block_tridiag_inertia(fk, EPS_INERTIA)]
         ip = [t.tolist() for t in plain.block_tridiag_inertia(fp, EPS_INERTIA)]
-        rel = ((xk - xp).abs().max() / xp.abs().max()).item()
+        rel = rel_diff(xk, xp)
         print(f"kernels {name} {tuple(D.shape[:3])}: inertia {ik[0]}/{ik[1]}/{ik[2]} "
               f"(plain {ip[0]}/{ip[1]}/{ip[2]}), solution rel diff {rel:.3e}", flush=True)
         if ik != ip:
             fail("kernels", f"{name}: inertia {ik} != plain {ip}")
+        if not torch.equal(fk.perm, fp.perm):
+            fail("kernels", f"{name}: pivot permutations differ from the plain version's")
         if not rel <= REL_TOL:
             fail("kernels", f"{name}: solution rel diff {rel:.3e} > {REL_TOL}")
 
@@ -168,7 +260,66 @@ def main() -> None:
     }
     print("kernel times (ms): " + ", ".join(f"{k} {v:.4f}" for k, v in times.items()), flush=True)
 
+    # The long horizons: the same kernels where the TPU chunks. The factor
+    # at (B, K, w), the solve on its first system (B=1), as the paths call
+    # them; the plain versions loop over K on the host, so one rep each.
+    # Each kernel is held on its own (K1: the plain solve on its factor;
+    # K2: on the plain factor) and the two together, all unrefined.
+    long = {}
+    systems = {"random": lambda rng, B, K, w: random_system(rng, B, K, w, 0),
+               "conditioned": conditioned_system}
+    for B, K, w, system in LONG_CASES:
+        D, E, b = systems[system](np.random.default_rng(B * K + w), B, K, w)
+        Dg, Eg, bg = (torch.tensor(a, dtype=torch.float64, device=dev) for a in (D, E, b))
+        fk = cuda_banded.banded_factor(Dg, Eg)
+        xk = cuda_banded.banded_solve(fk, bg)
+        fp = plain.block_tridiag_factor(Dg, Eg)
+        xp = plain.block_tridiag_solve(fp, bg)
+        xf = plain.block_tridiag_solve(fk, bg)
+        f1 = plain.BlockTridiagFactor(*(t[:1].contiguous() for t in fp))
+        b1 = bg[:1].contiguous()
+        xs = cuda_banded.banded_solve(f1, b1)
+        xs_plain = plain.block_tridiag_solve(f1, b1)
+        torch.cuda.synchronize()
+        ik = [t.tolist() for t in plain.block_tridiag_inertia(fk, EPS_INERTIA)]
+        ip = [t.tolist() for t in plain.block_tridiag_inertia(fp, EPS_INERTIA)]
+        entry = {
+            "system": system,
+            "factor_max_abs_err": (xf - xp).abs().max().item(),
+            "factor_rel_err": rel_diff(xf, xp),
+            "solve_max_abs_err": (xs - xs_plain).abs().max().item(),
+            "solve_rel_err": rel_diff(xs, xs_plain),
+            "rel_err": rel_diff(xk, xp),
+            "inertia_equal": ik == ip,
+            "perm_equal": torch.equal(fk.perm, fp.perm),
+            "factor_ms": cuda_ms(lambda: cuda_banded.banded_factor(Dg, Eg), 3),
+            "factor_plain_ms": cuda_ms(lambda: plain.block_tridiag_factor(Dg, Eg), 1),
+            "solve_ms": cuda_ms(lambda: cuda_banded.banded_solve(f1, b1), 5),
+            "solve_plain_ms": cuda_ms(lambda: plain.block_tridiag_solve(f1, b1), 1),
+        }
+        entry["factor_bound_ms"], entry["factor_bound_by"] = factor_bound(B, K, w)
+        entry["solve_bound_ms"], entry["solve_bound_by"] = solve_bound(1, K, w)
+        long[B, K, w] = entry
+        print(f"kernels long (B={B}, K={K}, w={w}, {system}): inertia {ik[0]}/{ik[1]}/{ik[2]} "
+              f"(plain {ip[0]}/{ip[1]}/{ip[2]}), pivots equal {entry['perm_equal']}, solution "
+              f"rel diff {entry['rel_err']:.3e} (factor alone {entry['factor_rel_err']:.3e}, "
+              f"solve alone {entry['solve_rel_err']:.3e}); factor "
+              f"{entry['factor_ms']:.3f} ms (plain {entry['factor_plain_ms']:.1f}, bound "
+              f"{entry['factor_bound_ms']:.5f}), solve {entry['solve_ms']:.3f} ms (plain "
+              f"{entry['solve_plain_ms']:.1f}, bound {entry['solve_bound_ms']:.5f})", flush=True)
+        if ik != ip:
+            fail("kernels", f"long {(B, K, w)}: inertia {ik} != plain {ip}")
+        if not entry["perm_equal"]:
+            fail("kernels", f"long {(B, K, w)}: pivot permutations differ from the plain version's")
+        for key in ("rel_err", "factor_rel_err", "solve_rel_err"):
+            if not entry[key] <= REL_TOL:
+                fail("kernels", f"long {(B, K, w)}: {key} {entry[key]:.3e} > {REL_TOL}")
+        del Dg, Eg, bg, fk, xk, fp, xp, xf, f1, b1, xs, xs_plain
+    torch.cuda.empty_cache()
+    print(f"kernels phase: {time.monotonic() - t_phase:.1f} s", flush=True)
+
     # -- 4. main path -----------------------------------------------------
+    t_phase = time.monotonic()
     problem, X, U = cart_pole_problem(N=N, total_time=TOTAL_TIME)
     guess = X.value().copy()
     cuda_banded.reset_counters()
@@ -216,6 +367,164 @@ def main() -> None:
         fail("main path", f"final state {Xv[:, N]} is {final_err:.3e} from the target")
     if not dyn_err <= 1e-8:
         fail("main path", f"trajectory breaks the RK4 oracle by {dyn_err:.3e}")
+    print(f"main path phase: {time.monotonic() - t_phase:.1f} s", flush=True)
+
+    # -- 5. precision probe -----------------------------------------------
+    t_phase = time.monotonic()
+    cuda_dd_probe.reset_counters()
+    probe = dd_probe.main(["--device", "cuda"])
+    probe_launches = cuda_dd_probe.LAUNCHES
+    if probe_launches == 0:
+        fail("precision probe", "the probe kernels were never launched")
+    if not probe.get("bitwise_equal"):
+        fail("precision probe", "the kernels differ from the plain version")
+    x = dd_probe.probe_inputs(dev)
+    probe_ms = cuda_ms(lambda: dd_probe.run_probe(x, cuda_dd_probe.primitive,
+                                                  cuda_dd_probe.onehot_product))
+    probe_plain_ms = cuda_ms(lambda: dd_probe.run_probe(x, dd_probe.plain_primitive,
+                                                        plain_dd.onehot_product))
+    # Each of the six kernels alone. Bounds: float32 operations per element
+    # as ops/dd.py writes them, inputs read once and (hi, lo) written once.
+    # Only the one-hot product has a single library call: torch.matmul
+    # (float32; TF32 is off by default), timed here and used nowhere else.
+    n_el, w_oh = x["ah"].numel(), x["P"].shape[0]
+    primitives = (("two_sum", 6, 2), ("two_prod", 17, 2), ("add2", 20, 4),
+                  ("mul2", 24, 4), ("div2", 114, 4))
+    probe_parts = []
+    for name, ops, n_in in primitives:
+        args = (x["ah"], x["bh"]) if n_in == 2 else (x["ah"], x["al"], x["bh"], x["bl"])
+        probe_parts.append({
+            "name": name,
+            "ms": cuda_ms(lambda: cuda_dd_probe.primitive(name, *args)),
+            "plain_ms": cuda_ms(lambda: dd_probe.plain_primitive(name, *args)),
+            **dict(zip(("bound_ms", "bound_by"),
+                       bound(ops * n_el, F32_PER_S, 4 * n_el * (n_in + 2)))),
+            "library_ms": None,
+        })
+    onehot_exact = torch.equal(torch.matmul(x["P"], x["Mh"]),
+                               cuda_dd_probe.onehot_product(x["P"], x["Mh"]))
+    probe_parts.append({
+        "name": "onehot_product",
+        "ms": cuda_ms(lambda: cuda_dd_probe.onehot_product(x["P"], x["Mh"])),
+        "plain_ms": cuda_ms(lambda: plain_dd.onehot_product(x["P"], x["Mh"])),
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound(2.0 * w_oh**3, F32_PER_S, 4 * 3 * w_oh * w_oh))),
+        "library_ms": cuda_ms(lambda: torch.matmul(x["P"], x["Mh"])),
+    })
+    # The whole probe: inputs (ah, al, bh, bl, P, Mh) read once, its ten
+    # element outputs and the product written once.
+    probe_bound = bound(sum(ops for _n, ops, _i in primitives) * n_el + 2.0 * w_oh**3, F32_PER_S,
+                        4 * (4 * n_el + 2 * w_oh * w_oh) + 4 * (10 * n_el + w_oh * w_oh))
+    print(f"precision probe: {probe_launches} launches, bitwise equal to the plain version, "
+          f"{probe_ms:.4f} ms (plain {probe_plain_ms:.4f}); "
+          + ", ".join(f"{p['name']} {p['ms']:.4f} ms (plain {p['plain_ms']:.4f}"
+                      + ("" if p["library_ms"] is None else f", torch.matmul {p['library_ms']:.4f}")
+                      + ")" for p in probe_parts)
+          + f"; one-hot kernel equals torch.matmul: {onehot_exact}; phase "
+          f"{time.monotonic() - t_phase:.1f} s", flush=True)
+
+    # -- 6. long horizon: flywheel N=5000 -----------------------------------
+    t_phase = time.monotonic()
+    fly, FX, FU = flywheel.flywheel_problem(N=FLYWHEEL_N, total_time=TOTAL_TIME)
+    cuda_banded.reset_counters()
+    t0 = time.monotonic()
+    status = fly.solve(device="cuda")
+    first_s = time.monotonic() - t0
+    if status != ExitStatus.SUCCESS:
+        fail("long horizon", f"first flywheel solve ended {status}")
+    FX.set_value(np.zeros((1, FLYWHEEL_N + 1)))
+    FU.set_value(np.zeros((1, FLYWHEEL_N + 1)))
+    t0 = time.monotonic()
+    status = fly.solve(device="cuda")
+    torch.cuda.synchronize()
+    fly_s = time.monotonic() - t0
+    fly_shapes = dict(cuda_banded.LAUNCHES_BY_SHAPE)
+    fly_iters = fly.last_solve_stats.iterations
+    if status != ExitStatus.SUCCESS:
+        fail("long horizon", f"timed flywheel solve ended {status}")
+    failures = flywheel.oracle_failures(FX.value(), FU.value(), TOTAL_TIME)
+    print(f"flywheel N={FLYWHEEL_N}: {status}, {fly_iters} iterations (the JAX package: "
+          f"18 on a TPU, docs/scalability_results.md:123), first solve {first_s:.2f} s, "
+          f"timed solve {fly_s:.2f} s ({fly_s * 1e3 / fly_iters:.1f} ms/iteration), "
+          f"launches {fly_shapes}, oracle failures {len(failures)}", flush=True)
+    if failures:
+        fail("long horizon", "flywheel oracle: " + "; ".join(failures[:5]))
+    for k in ("factor", "solve"):
+        if not any(kk == k and K == FLYWHEEL_N + 1 for kk, _b, K, _w in fly_shapes):
+            fail("long horizon", f"no {k} launch at K={FLYWHEEL_N + 1}: {fly_shapes}")
+    print(f"long horizon phase: {time.monotonic() - t_phase:.1f} s", flush=True)
+
+    # -- 7. restoration: cart-pole N=2000 -----------------------------------
+    t_phase = time.monotonic()
+    cp, _, _ = cart_pole_problem(N=RESTORATION_N, total_time=TOTAL_TIME)
+    options = Options(device="cuda")
+    comp = cp._compile()
+    init, _step, _resume, funcs, g_fn, backend = cp._prepare_ipm(comp, options, dev)
+    params = comp["compiled"].gather_params()
+    x0 = RESTORATION_SCALE * np.random.default_rng(RESTORATION_SEED).standard_normal(comp["n"])
+    scaling, _, _ = cp._ipm_scaling(g_fn, backend, x0, params)
+    state = init(x0, np.ones(comp["mi"]), np.zeros(comp["me"]), np.ones(comp["mi"]),
+                 0.1 * scaling.f, 0, params,
+                 ScalingArrays(f=scaling.f, c_e=scaling.c_e, c_i=scaling.c_i))
+
+    def violation(xv):
+        xt = torch.as_tensor(xv, dtype=torch.float64, device=dev)
+        ce = funcs.c_e(xt, state.params, state.scaling)
+        ci = funcs.c_i(xt, state.params, state.scaling)
+        return float(ce.abs().sum() + torch.clamp(ci, max=0.0).abs().sum())
+
+    v0 = violation(state.x)
+    cuda_banded.reset_counters()
+    t0 = time.monotonic()
+    outcome, x_new, _s, _y, _z, fr_iters = restore(funcs, state, options, parent_backend=backend)
+    torch.cuda.synchronize()
+    restore_s = time.monotonic() - t0
+    fr_shapes = dict(cuda_banded.LAUNCHES_BY_SHAPE)
+    v1 = violation(x_new)
+    print(f"restoration cart-pole N={RESTORATION_N}: {outcome} after {fr_iters} iterations, "
+          f"{restore_s:.2f} s, violation {v0:.6g} -> {v1:.6g} ({v1 / v0:.4f} of the start), "
+          f"launches {fr_shapes}", flush=True)
+    if outcome != "resume":
+        fail("restoration", f"outcome {outcome}")
+    if not v1 < 0.95 * v0:
+        fail("restoration", f"violation {v1} is not below 0.95 x {v0}")
+    for k in ("factor", "solve"):
+        if not any(kk == k and K == RESTORATION_N + 1 and w == 37 for kk, _b, K, w in fr_shapes):
+            fail("restoration", f"no {k} launch at K={RESTORATION_N + 1}, w=37: {fr_shapes}")
+    print(f"restoration phase: {time.monotonic() - t_phase:.1f} s", flush=True)
+
+    # -- results ----------------------------------------------------------
+    path_shapes = collections.Counter(fly_shapes) + collections.Counter(fr_shapes)
+    fly_long = long[4, FLYWHEEL_N + 1, 4]
+
+    def long_entry(kind, replaces):
+        shapes = []
+        for (B, K, w), e in long.items():
+            shapes.append({
+                "B": B if kind == "factor" else 1, "K": K, "w": w,
+                "system": e["system"], "max_abs_err": e[f"{kind}_max_abs_err"],
+                "rel_err": e[f"{kind}_rel_err"], "inertia_equal": e["inertia_equal"],
+                "perm_equal": e["perm_equal"],
+                "ms": e[f"{kind}_ms"], "plain_ms": e[f"{kind}_plain_ms"],
+                "bound_ms": e[f"{kind}_bound_ms"], "bound_by": e[f"{kind}_bound_by"],
+            })
+        return {
+            "name": f"banded_{kind}_long",
+            "route": "cuda",
+            "source": "sleipnir_tpu_torch/csrc/banded.cu",
+            "replaces": replaces,
+            "launches": sum(long_launches(path_shapes, kind).values()),
+            "launches_by_shape": long_launches(path_shapes, kind),
+            # At the flywheel path's shape (factor B=4, solve B=1, K=5001, w=4);
+            # every long shape is listed under "shapes".
+            "max_abs_err": fly_long[f"{kind}_max_abs_err"],
+            "ms": fly_long[f"{kind}_ms"],
+            "plain_ms": fly_long[f"{kind}_plain_ms"],
+            "bound_ms": fly_long[f"{kind}_bound_ms"],
+            "bound_by": fly_long[f"{kind}_bound_by"],
+            "library_ms": None,
+            "shapes": shapes,
+        }
 
     kernels = [
         {
@@ -227,6 +536,8 @@ def main() -> None:
             "max_abs_err": err_factor,
             "ms": times["factor"],
             "plain_ms": times["factor_plain"],
+            **dict(zip(("bound_ms", "bound_by"), factor_bound(4, N + 1, 13))),
+            "library_ms": None,
         },
         {
             "name": "banded_solve",
@@ -237,8 +548,32 @@ def main() -> None:
             "max_abs_err": err_solve,
             "ms": times["solve"],
             "plain_ms": times["solve_plain"],
+            **dict(zip(("bound_ms", "bound_by"), solve_bound(1, N + 1, 13))),
+            "library_ms": None,
+        },
+        long_entry("factor", "sleipnir_tpu/ops/pallas_banded.py:633"),
+        long_entry("solve", "sleipnir_tpu/ops/pallas_banded.py:680"),
+        {
+            "name": "dd_probe",
+            "route": "cuda",
+            "source": "sleipnir_tpu_torch/csrc/dd_probe.cu",
+            "replaces": "tools/pallas_dd_probe.py:22",
+            "launches": probe_launches,
+            "max_abs_err": probe["max_abs_diff"],
+            "bitwise_equal": probe["bitwise_equal"],
+            "ms": probe_ms,
+            "plain_ms": probe_plain_ms,
+            "bound_ms": probe_bound[0],
+            "bound_by": probe_bound[1],
+            # No single call computes all six; the one-hot product's
+            # torch.matmul time is under "parts".
+            "library_ms": None,
+            "parts": probe_parts,
         },
     ]
+    for entry in kernels[2:4]:
+        if entry["launches"] == 0:
+            fail("results", f"{entry['name']} was never launched at a long-horizon shape")
     print(json.dumps({"kernels": kernels}), flush=True)
     device = {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}
     print(json.dumps({"ok": True, "device": device}), flush=True)

@@ -1,12 +1,14 @@
-"""Where an iteration of the cart-pole IPM solve spends its time.
+"""Where an iteration of an IPM solve of the port spends its time.
 
 Run from the repository root on a machine with a CUDA card:
 
-    python3 phase_probe.py                 # cart-pole N=100 on the card
-    python3 phase_probe.py --device cpu --n 10 --timed 5 --profiled 3
+    python3 phase_probe.py                                 # cart-pole N=100
+    python3 phase_probe.py --problem cart_pole --N 1000
+    python3 phase_probe.py --problem flywheel --N 5000
+    python3 phase_probe.py --device cpu --N 10 --timed 5 --profiled 3
 
-One solve through `Problem.solve`, stopped after warm + timed + profiled
-iterations (it ends as MAX_ITERATIONS_EXCEEDED), in three windows:
+One solve through `Problem.solve`, run to its end, with the parent's
+iterations in three windows:
 
   warm-up   not measured: the kernels build and the solver's caches fill;
   timed     each phase below runs between two device syncs, timed on the
@@ -15,10 +17,15 @@ iterations (it ends as MAX_ITERATIONS_EXCEEDED), in three windows:
             share of the wall time, device ops per iteration, the ops that
             take the most device time.
 
-Phases: `BandedBackend.eval_derivs` (colored derivative probes),
-`factor` (assembly, equilibration, the K1 kernel on the regularization
-ladder, inertia), `solve_refined` (three K2 solves), and the compiled
-problem's f, c_e and c_i when called outside them (the line search).
+A window that the solve does not reach is reported as such. Phases:
+`BandedBackend.eval_derivs` (colored derivative probes), `factor`
+(assembly, equilibration, the K1 kernel on the regularization ladder,
+inertia), `solve_refined` (three K2 solves), the compiled problem's f,
+c_e and c_i when called outside them (the line search), and `restore`
+(feasibility restoration, whatever it runs inside). Iteration counts
+include the restoration solver's iterations, as the JAX package counts
+them. The whole solve's wall time, its exit status, and the restoration
+entries with their time and iterations are reported as well.
 """
 
 from __future__ import annotations
@@ -36,37 +43,40 @@ from torch.autograd import DeviceType
 import sleipnir_tpu_torch.optimization.problem as problem_module
 from sleipnir_tpu_torch.autodiff.vectorize import BlockCompiler
 from sleipnir_tpu_torch.models.cart_pole import cart_pole_problem
+from sleipnir_tpu_torch.models.flywheel import flywheel_problem
 from sleipnir_tpu_torch.optimization.solver.kkt_banded import BandedBackend
 
 PHASES = {
     BandedBackend: ("eval_derivs", "factor", "solve_refined"),
     BlockCompiler: ("f", "c_e", "c_i"),
+    problem_module: ("restore",),
 }
+PROBLEMS = {"cart_pole": cart_pole_problem, "flywheel": flywheel_problem}
 
 
 class Probe:
-    """Phase timers around class methods and an iteration-window hook."""
+    """Phase timers around functions and an iteration-window hook."""
 
-    def __init__(self, device: torch.device, warm: int, timed: int) -> None:
+    def __init__(self, device: torch.device, warm: int, timed: int, profiled: int) -> None:
         self.sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
-        self.warm, self.timed = warm, timed
-        self.timing = False
+        self.bounds = (warm, warm + timed, warm + timed + profiled)
+        self.window = 0  # 0 warm-up, 1 timed, 2 profiled, 3 done
+        self.marks: dict = {}  # window -> (iteration, host time) at its start
         self.depth = 0
         self.seconds: collections.Counter = collections.Counter()
         self.calls: collections.Counter = collections.Counter()
-        self.timed_wall = 0.0
-        self.profiled_start = 0.0
+        self.restorations: list = []  # (seconds, iterations) per entry
         self.profiler = torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]
             + ([torch.profiler.ProfilerActivity.CUDA] if device.type == "cuda" else [])
         )
 
-    def wrap(self, cls, name: str) -> None:
-        inner = getattr(cls, name)
+    def wrap(self, owner, name: str) -> None:
+        inner = getattr(owner, name)
 
         @functools.wraps(inner)
         def timed(*args, **kwargs):
-            if not self.timing or self.depth:
+            if self.window != 1 or self.depth:
                 return inner(*args, **kwargs)
             self.sync()
             self.depth += 1
@@ -80,25 +90,54 @@ class Probe:
             self.calls[name] += 1
             return out
 
-        setattr(cls, name, timed)
+        setattr(owner, name, timed)
+
+    def count_restorations(self) -> None:
+        inner = problem_module.restore
+
+        @functools.wraps(inner)
+        def counted(parent, parent_state, *args, **kwargs):
+            t0 = time.perf_counter()
+            out = inner(parent, parent_state, *args, **kwargs)
+            self.sync()
+            self.restorations.append((time.perf_counter() - t0, out[-1] - parent_state.iterations))
+            return out
+
+        problem_module.restore = counted
 
     def on_iteration(self, k: int) -> None:
-        if k == self.warm:
+        """Called before each parent step with its iteration count."""
+        while self.window < 3 and k >= self.bounds[self.window]:
             self.sync()
-            self.timing = True
-            self.timed_wall = time.perf_counter()
-        elif k == self.warm + self.timed:
-            self.sync()
-            self.timing = False
-            self.timed_wall = time.perf_counter() - self.timed_wall
-            self.profiler.start()
-            self.profiled_start = time.perf_counter()
+            self.window += 1
+            self.marks[self.window] = (k, time.perf_counter())
+            if self.window == 2:
+                self.profiler.start()
+            elif self.window == 3:
+                self.profiler.stop()
+
+    def finish(self, k: int) -> None:
+        """Close the open window at the end of the solve."""
+        self.sync()
+        if self.window in (1, 2):
+            self.marks[self.window + 1] = (k, time.perf_counter())
+            if self.window == 2:
+                self.profiler.stop()
+            self.window = 3
+
+    def span(self, window: int):
+        """(iterations, seconds) the window covered, or None."""
+        if window not in self.marks or window + 1 not in self.marks:
+            return None
+        (k0, t0), (k1, t1) = self.marks[window], self.marks[window + 1]
+        return (k1 - k0, t1 - t0) if k1 > k0 else None
 
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--device", default="cuda")
-    parser.add_argument("--n", type=int, default=100, help="cart-pole stages N")
+    parser.add_argument("--problem", choices=sorted(PROBLEMS), default="cart_pole")
+    parser.add_argument("--N", type=int, default=100, help="horizon steps")
     parser.add_argument("--warm", type=int, default=3)
     parser.add_argument("--timed", type=int, default=30)
     parser.add_argument("--profiled", type=int, default=10)
@@ -113,10 +152,11 @@ def main() -> None:
         )
         print(smi.stdout.strip().splitlines()[0], flush=True)
 
-    probe = Probe(device, args.warm, args.timed)
-    for cls, names in PHASES.items():
+    probe = Probe(device, args.warm, args.timed, args.profiled)
+    probe.count_restorations()
+    for owner, names in PHASES.items():
         for name in names:
-            probe.wrap(cls, name)
+            probe.wrap(owner, name)
     run_solver = problem_module.run_solver
 
     def run_solver_with_hook(state, step, options, **kwargs):
@@ -128,31 +168,44 @@ def main() -> None:
 
     problem_module.run_solver = run_solver_with_hook
 
-    problem, _X, _U = cart_pole_problem(N=args.n, total_time=5.0)
-    total = args.warm + args.timed + args.profiled
-    status = problem.solve(device=args.device, max_iterations=total)
+    problem, _X, _U = PROBLEMS[args.problem](N=args.N, total_time=5.0)
+    t0 = time.perf_counter()
+    status = problem.solve(device=args.device)
     probe.sync()
-    profiled_wall = time.perf_counter() - probe.profiled_start
-    probe.profiler.stop()
+    wall = time.perf_counter() - t0
     stats = problem.last_solve_stats
-    print(f"cart-pole N={args.n} on {args.device}: {status}, {stats.iterations} iterations, "
+    probe.finish(stats.iterations)
+    restore_s = sum(s for s, _ in probe.restorations)
+    restore_it = sum(i for _, i in probe.restorations)
+    print(f"{args.problem} N={args.N} on {args.device}: {status}, {stats.iterations} iterations, "
+          f"solve {wall:.3f} s ({wall * 1e3 / max(stats.iterations, 1):.1f} ms/iteration), "
           f"host syncs/iteration {stats.host_syncs_per_iteration:.2f}", flush=True)
-    if stats.iterations != total:
-        sys.exit(f"the solve ended after {stats.iterations} of {total} iterations")
+    print(f"restoration: {len(probe.restorations)} entries, {restore_it} iterations, "
+          f"{restore_s:.3f} s", flush=True)
 
-    per_it = 1e3 / args.timed
-    print(f"timed {args.timed} iterations from iteration {args.warm}: {probe.timed_wall:.3f} s, "
-          f"{probe.timed_wall * per_it:.1f} ms/iteration", flush=True)
-    for name, s in probe.seconds.most_common():
-        print(f"  {name:14s} {s * per_it:9.2f} ms/iteration  {100 * s / probe.timed_wall:5.1f}%  "
-              f"{probe.calls[name]:4d} calls", flush=True)
-    rest = probe.timed_wall - sum(probe.seconds.values())
-    print(f"  {'(rest)':14s} {rest * per_it:9.2f} ms/iteration  "
-          f"{100 * rest / probe.timed_wall:5.1f}%", flush=True)
+    timed = probe.span(1)
+    if timed is None:
+        print(f"timed window: not reached (the solve ended after {stats.iterations} iterations)")
+    else:
+        iters, seconds = timed
+        per_it = 1e3 / iters
+        print(f"timed {iters} iterations from iteration {probe.marks[1][0]}: {seconds:.3f} s, "
+              f"{seconds * per_it:.1f} ms/iteration", flush=True)
+        for name, s in probe.seconds.most_common():
+            print(f"  {name:14s} {s * per_it:9.2f} ms/iteration  {100 * s / seconds:5.1f}%  "
+                  f"{probe.calls[name]:4d} calls", flush=True)
+        rest = seconds - sum(probe.seconds.values())
+        print(f"  {'(rest)':14s} {rest * per_it:9.2f} ms/iteration  "
+              f"{100 * rest / seconds:5.1f}%", flush=True)
 
+    profiled = probe.span(2)
+    if profiled is None:
+        print("profiled window: not reached", flush=True)
+        return
+    iters, seconds = profiled
     events = [e for e in probe.profiler.events() if e.device_type == DeviceType.CUDA]
     if not events:
-        print(f"profiled {args.profiled} iterations: wall {profiled_wall:.3f} s; "
+        print(f"profiled {iters} iterations: wall {seconds:.3f} s; "
               "device activity not measured (the profiler saw no device events)", flush=True)
         return
     busy_us: collections.Counter = collections.Counter()
@@ -161,9 +214,9 @@ def main() -> None:
         busy_us[e.name] += e.time_range.elapsed_us()
         count[e.name] += 1
     busy = sum(busy_us.values()) / 1e6
-    print(f"profiled {args.profiled} iterations: wall {profiled_wall:.3f} s, device busy "
-          f"{busy:.3f} s ({100 * busy / profiled_wall:.2f}%), {len(events)} device ops "
-          f"({len(events) / args.profiled:.0f}/iteration)", flush=True)
+    print(f"profiled {iters} iterations: wall {seconds:.3f} s, device busy "
+          f"{busy:.3f} s ({100 * busy / seconds:.2f}%), {len(events)} device ops "
+          f"({len(events) / iters:.0f}/iteration)", flush=True)
     for name, us in busy_us.most_common(8):
         print(f"  {us / 1e3:9.3f} ms  {count[name]:6d} ops  {name[:90]}", flush=True)
 

@@ -8,8 +8,9 @@ CUDA C++ kernels written for Hopper (`ops/cuda_banded.py`,
 explicitly; importing the package changes no global torch setting. The
 solve device comes from `Options(device=...)`, "cuda" by default.
 
-This slice covers the interior-point path on OCP stage structure (the
-cart-pole swing-up at full size); ROADMAP.md lists what is still to port.
+The port covers the interior-point path on OCP stage structure, with
+banded feasibility restoration (the cart-pole swing-up and the flywheel
+at their full sizes); ROADMAP.md lists what is still to port.
 """
 
 from sleipnir_tpu_torch.autodiff import (

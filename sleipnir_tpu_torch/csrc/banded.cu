@@ -3,6 +3,14 @@
 // Replaces the Pallas TPU kernels of sleipnir_tpu/ops/pallas_banded.py:
 //   sleipnir_banded_factor  <- pallas_banded_factor (_factor_kernel)
 //   sleipnir_banded_solve   <- pallas_banded_solve  (_solve_kernel)
+// and, for long horizons, their chunked forms:
+//   sleipnir_banded_factor  <- _pallas_factor_chunked (_factor_kernel_chunked)
+//   sleipnir_banded_solve   <- _pallas_solve_chunked (the two chunked sweeps)
+// The TPU chunks the stage grid because its scoped VMEM cannot hold a
+// long horizon; these kernels read each stage's blocks from device memory
+// inside their stage loop whatever K is, so one kernel serves every K.
+// Offsets into the (B, K, ...) arrays are size_t: at B=4, K=5001, w=37 an
+// array holds 27 million entries.
 //
 // The matrix is symmetric block tridiagonal: diagonal blocks D_k (K, w, w)
 // and sub-diagonal blocks E_k (K-1, w, w), E_k = M[k+1, k]. The factor is

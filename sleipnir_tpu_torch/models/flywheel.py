@@ -1,0 +1,99 @@
+"""Flywheel spin-up model and benchmark problem.
+
+Port of `sleipnir_tpu/models/flywheel.py`, matching reference
+benchmarks/scalability/flywheel/main.cpp and
+python/test/optimization/flywheel_problem_test.py:13-41: discrete linear
+dynamics x₊ = A x + B u with A = exp(−dt), B = 1 − exp(−dt), input bounds
+±12 V, quadratic tracking cost to r = 10 rad/s. Its stage blocks on the
+banded backend are 4 wide: one state, one input and two equality slots,
+since stage 0 holds x₀ = 0 beside its dynamics row (as in the JAX
+package).
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+
+from sleipnir_tpu_torch.optimization.ocp import (
+    OCP,
+    DynamicsType,
+    TimestepMethod,
+    TranscriptionMethod,
+)
+
+
+def flywheel_problem(N: int = 1000, total_time: float = 5.0, fast: bool = True):
+    """Build the flywheel tracking problem. Returns (problem, X, U).
+
+    Linear dynamics, quadratic cost and linear bounds: the interior-point
+    method, as in the reference. Only the OCP form (`fast=True`) is
+    ported; the plain-Problem form needs the dense KKT backend.
+    """
+    if not fast:
+        raise NotImplementedError(
+            "the plain-Problem flywheel needs the dense KKT backend, which is "
+            "not ported yet (ROADMAP queue 1 item 10)"
+        )
+    dt = total_time / N
+    A = math.exp(-dt)
+    B = 1.0 - math.exp(-dt)
+    r = 10.0
+
+    # Discrete linear dynamics as one vmapped block, solved with the
+    # block-tridiagonal KKT backend.
+    def discrete(x, u):
+        return A * x + B * u
+
+    ocp = OCP(
+        1,
+        1,
+        dt,
+        N,
+        discrete,
+        DynamicsType.DISCRETE,
+        TimestepMethod.FIXED,
+        TranscriptionMethod.DIRECT_TRANSCRIPTION,
+    )
+    X = ocp.X()
+    U = ocp.U()
+    ocp.constrain_initial_state(0.0)
+    ocp.subject_to(U >= -12.0)
+    ocp.subject_to(U <= 12.0)
+    err = r - X
+    ocp.minimize((err**2).sum())
+    return ocp, X, U
+
+
+def oracle_failures(Xv, Uv, total_time: float = 5.0) -> list[str]:
+    """Plain-numpy checks of a solved trajectory (the JAX package's
+    tests/optimization/test_flywheel_problem.py): x₀ = 0, the dynamics
+    x_{k+1} = A x_k + B u_k to 1e-8, |u| ≤ 12 + 1e-9, full voltage while
+    far from r, the steady-state voltage once there, and x_N at r.
+    Returns the checks that fail, empty when all hold."""
+    Xv = np.asarray(Xv, dtype=np.float64).reshape(-1)
+    Uv = np.asarray(Uv, dtype=np.float64).reshape(-1)
+    N = Xv.shape[0] - 1
+    dt = total_time / N
+    A = math.exp(-dt)
+    B = 1.0 - math.exp(-dt)
+    r = 10.0
+    failures = []
+    if not abs(Xv[0]) <= 1e-8:
+        failures.append(f"x_0 = {Xv[0]}")
+    dyn = np.abs(Xv[1:] - (A * Xv[:-1] + B * Uv[:N]))
+    if not dyn.max() <= 1e-8:
+        failures.append(f"dynamics residual {dyn.max():.3e} at k = {int(dyn.argmax())}")
+    if not (np.all(Uv >= -12.0 - 1e-9) and np.all(Uv <= 12.0 + 1e-9)):
+        failures.append(f"input outside ±12: [{Uv.min()}, {Uv.max()}]")
+    u_ss = 1.0 / B * (1.0 - A) * r
+    for k in range(N - 1):
+        error = r - Xv[k]
+        if error > 0.2 and not abs(Uv[k] - 12.0) <= 1e-4:
+            failures.append(f"u_{k} = {Uv[k]} while {error} from r")
+        elif error < 1e-4 and k < N - 2 and not abs(Uv[k] - u_ss) <= 1e-2:
+            failures.append(f"u_{k} = {Uv[k]} at steady state, not {u_ss}")
+    if not abs(Xv[N] - r) <= 1e-2:
+        failures.append(f"x_N = {Xv[N]}, not r = {r}")
+    return failures

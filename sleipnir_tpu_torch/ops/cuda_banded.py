@@ -8,43 +8,40 @@ stages of block-synchronised steps, far from the f64 rate or the memory
 bandwidth) and what the design does about it (stage working set in shared
 memory, parallelism from the batch axis).
 
-The kernels are built with `nvcc` for `sm_90a` into `build/sleipnir_tpu_torch/`
-at first use, keyed by a hash of the source, and bound through `ctypes`.
+The kernels are built with `nvcc` for `sm_90a` at first use by
+`ops/cuda_build.py` and bound through `ctypes`.
 
 A wrapper given CUDA tensors launches its kernel or raises; given CPU
 tensors it runs the plain twin in `ops/block_tridiag.py`. The launch
-counters `FACTOR_LAUNCHES` and `SOLVE_LAUNCHES` count kernel launches only.
+counters `FACTOR_LAUNCHES` and `SOLVE_LAUNCHES` count kernel launches
+only, and `LAUNCHES_BY_SHAPE` counts them by (kind, B, K, w), so a run
+can show which shapes reached the kernels. The TPU's chunked kernels
+(`_pallas_factor_chunked`, `_pallas_solve_chunked`), which long horizons
+take there, have no separate counterpart: these kernels stream every
+stage's blocks from device memory whatever K is.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
 
 import torch
 
-from sleipnir_tpu_torch.ops import block_tridiag
+from sleipnir_tpu_torch.ops import block_tridiag, cuda_build
 from sleipnir_tpu_torch.ops.block_tridiag import BlockTridiagFactor
 
 #: Kernel launches since the counters were last reset.
 FACTOR_LAUNCHES = 0
 SOLVE_LAUNCHES = 0
+#: The same launches by ("factor" | "solve", B, K, w).
+LAUNCHES_BY_SHAPE: collections.Counter = collections.Counter()
 
 #: Widest stage block the kernels take (the feasibility-restoration
 #: system of cart-pole is 37 wide); their shared memory is sized for it.
 MAX_WIDTH = 37
 
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "banded.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "sleipnir_tpu_torch"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-)
+SOURCE = cuda_build.Source(cuda_build.CSRC / "banded.cu")
 
 _lib = None
 
@@ -53,54 +50,13 @@ def reset_counters() -> None:
     global FACTOR_LAUNCHES, SOLVE_LAUNCHES
     FACTOR_LAUNCHES = 0
     SOLVE_LAUNCHES = 0
-
-
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME  # noqa: PLC0415
-
-    if CUDA_HOME is not None:
-        path = os.path.join(CUDA_HOME, "bin", "nvcc")
-        if os.path.exists(path):
-            return path
-    path = shutil.which("nvcc")
-    if path is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
-    return path
-
-
-def build(verbose: bool = False) -> tuple[Path, str]:
-    """Compile `csrc/banded.cu` unless a build of this exact source exists.
-
-    Returns (library path, compiler output). With `verbose`, ptxas reports
-    each kernel's registers, shared memory and spills.
-    """
-    source = SOURCE.read_bytes()
-    digest = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    lib = BUILD_DIR / f"libbanded_{digest[:16]}.so"
-    if lib.exists():
-        return lib, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
-           "-o", tmp, str(SOURCE)]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-            )
-        os.replace(tmp, lib)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return lib, proc.stdout + proc.stderr
+    LAUNCHES_BY_SHAPE.clear()
 
 
 def _library():
     global _lib
     if _lib is None:
-        path, _log = build()
+        [(path, _log)] = cuda_build.build([SOURCE])
         lib = ctypes.CDLL(str(path))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.sleipnir_banded_factor.argtypes = [ptr] * 6 + [i32] * 3 + [ptr]
@@ -169,6 +125,7 @@ def banded_factor(D: torch.Tensor, E: torch.Tensor) -> BlockTridiagFactor:
     _check(lib, err, "banded_factor")
     global FACTOR_LAUNCHES
     FACTOR_LAUNCHES += 1
+    LAUNCHES_BY_SHAPE["factor", B, K, w] += 1
     return BlockTridiagFactor(LU=LU, perm=perm, d=d, X=X)
 
 
@@ -196,4 +153,5 @@ def banded_solve(fac: BlockTridiagFactor, b: torch.Tensor) -> torch.Tensor:
     _check(lib, err, "banded_solve")
     global SOLVE_LAUNCHES
     SOLVE_LAUNCHES += 1
+    LAUNCHES_BY_SHAPE["solve", B, K, w] += 1
     return x

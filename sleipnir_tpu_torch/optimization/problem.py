@@ -6,10 +6,10 @@ by linearity and dispatches (reference problem.hpp:303-669). The cost and
 constraints are compiled once into torch functions of the flat decision
 vector, and derivatives come from `torch.func`.
 
-This slice ports the interior-point branch on the banded KKT backend.
-The Newton and SQP branches, the dense backend, feasibility restoration,
-diagnostics printing and sparsity recording raise NotImplementedError
-naming their ROADMAP item.
+This port covers the interior-point branch on the banded KKT backend,
+with banded feasibility restoration. The Newton and SQP branches, the
+dense backend, diagnostics printing and sparsity recording raise
+NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -37,6 +37,9 @@ from sleipnir_tpu_torch.optimization.solver.interior_point import make_interior_
 from sleipnir_tpu_torch.optimization.solver.iteration_info import IterationInfo
 from sleipnir_tpu_torch.optimization.solver.options import Options
 from sleipnir_tpu_torch.optimization.solver.solve_driver import run_solver
+from sleipnir_tpu_torch.optimization.solver.util.feasibility_restoration import (
+    restore,
+)
 from sleipnir_tpu_torch.optimization.solver.util.bounds import (
     get_bounds_rows,
     project_onto_bounds,
@@ -306,8 +309,8 @@ class Problem:
             c_e=lambda x, p, sc: sc.c_e * ce_raw(x, p),
             c_i=lambda x, p, sc: sc.c_i * ci_raw(x, p),
         )
-        init, step = make_interior_point(funcs, options, backend=backend)
-        cached = (init, step, g_fn, backend)
+        init, step, resume = make_interior_point(funcs, options, backend=backend)
+        cached = (init, step, resume, funcs, g_fn, backend)
         self._solver_cache[key] = cached
         return cached
 
@@ -316,10 +319,29 @@ class Problem:
         the stage structure allows it."""
         return None
 
+    @staticmethod
+    def _ipm_scaling(g_fn, backend, x0, params):
+        """Scaling at a starting point (reference problem.hpp:612-616) from
+        per-row Jacobian norms (O(N·w) memory), on the solve device.
+        Returns (ProblemScaling, ci_rows, ci_cols), the last two for bound
+        detection."""
+
+        def on_device(a):
+            return torch.as_tensor(a, dtype=torch.float64, device=backend.device)
+
+        g0 = g_fn(on_device(x0), on_device(params)).cpu().numpy()
+        ce_loc, ce_next, ci_rows, ci_cols = backend.setup_rows(x0, params)
+        ce_inf = np.maximum(
+            np.max(np.abs(ce_loc), axis=1, initial=0.0),
+            np.max(np.abs(ce_next), axis=1, initial=0.0),
+        )
+        ci_inf = np.max(np.abs(ci_rows), axis=1, initial=0.0)
+        return ProblemScaling.from_row_norms(g0, ce_inf, ci_inf), ci_rows, ci_cols
+
     def _solve_ipm(self, comp, x0, params, options, start_time):
         """(reference problem.hpp:512-669)"""
         device = resolve_device(options.device)
-        init, step, g_fn, backend = self._prepare_ipm(comp, options, device)
+        init, step, resume, funcs, g_fn, backend = self._prepare_ipm(comp, options, device)
         syncs_before = backend.syncs.count
 
         def on_device(a):
@@ -327,17 +349,8 @@ class Problem:
 
         xd, pd = on_device(x0), on_device(params)
 
-        # Scaling at the starting point (reference problem.hpp:612-616) from
-        # per-row Jacobian norms (O(N·w) memory). This set-up runs once per
-        # solve, on the solve device.
-        g0 = g_fn(xd, pd).cpu().numpy()
-        ce_loc, ce_next, ci_rows, ci_cols = backend.setup_rows(x0, params)
-        ce_inf = np.maximum(
-            np.max(np.abs(ce_loc), axis=1, initial=0.0),
-            np.max(np.abs(ce_next), axis=1, initial=0.0),
-        )
-        ci_inf = np.max(np.abs(ci_rows), axis=1, initial=0.0)
-        scaling = ProblemScaling.from_row_norms(g0, ce_inf, ci_inf)
+        # This set-up runs once per solve, on the solve device.
+        scaling, ci_rows, ci_cols = self._ipm_scaling(g_fn, backend, x0, params)
         sc = ScalingArrays(f=scaling.f, c_e=scaling.c_e, c_i=scaling.c_i)
 
         # Bound detection and conflict check (reference problem.hpp:597-610)
@@ -358,6 +371,17 @@ class Problem:
         z0 = np.ones(comp["mi"])
         mu0 = 0.1 * scaling.f
 
+        def restoration_handler(state, st_time):
+            # The restoration subproblem of a stage-banded problem is banded
+            # too (its relaxation variables are stage-local), so it runs on
+            # a banded backend of its own, on the parent's device.
+            outcome, x_n, s_n, y_n, z_n, iters = restore(
+                funcs, state, options, start_time=st_time, parent_backend=backend
+            )
+            if outcome == "resume":
+                return resume(state, x_n, s_n, y_n, z_n, iters)
+            return state._replace(status=int(outcome), x=on_device(x_n), s=on_device(s_n))
+
         callbacks = self._persistent_callbacks + self._callbacks
         state = init(x0, s0, y0, z0, mu0, 0, params, sc)
         state = run_solver(
@@ -366,7 +390,7 @@ class Problem:
             options,
             callbacks=callbacks,
             info_fn=lambda st: self._ipm_info(st, backend),
-            restoration_handler=None,
+            restoration_handler=restoration_handler,
             start_time=start_time,
         )
         self._last_state = state

@@ -8,14 +8,19 @@ Where the JAX step branches on device with `lax.cond`/`lax.while_loop`
 the deciding booleans to the host through `HostSyncs` and branches in
 Python. Counters (iterations, status, streaks) are host integers.
 
-Feasibility restoration is not ported (ROADMAP queue 1 item 8): a step
-that needs it ends with status FEASIBILITY_RESTORATION_REQUESTED, which
-`run_solver` reports as FEASIBILITY_RESTORATION_FAILED.
+Feasibility restoration solves a problem of another shape, so a step
+that needs it ends with status FEASIBILITY_RESTORATION_REQUESTED and
+`run_solver` hands the state to a restoration handler
+(`util/feasibility_restoration.py`), which runs a second instance of this
+solver in restoration mode and gives the parent its iterate back through
+`resume`. In restoration mode γ_min is 0, an early-stop check may end the
+solve as CALLBACK_REQUESTED_STOP, and a step that would request
+restoration again fails the solve (reference :721-767).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 from torch.func import vmap
@@ -122,8 +127,20 @@ def _max_abs(v: torch.Tensor) -> torch.Tensor:
     return torch.max(torch.abs(v)) if v.numel() else v.new_zeros(())
 
 
-def make_interior_point(funcs: IPMFunctions, options: Options, *, backend: BandedBackend):
-    """Build (init, step) for the IPM on a fixed problem shape."""
+def make_interior_point(
+    funcs: IPMFunctions,
+    options: Options,
+    *,
+    backend: BandedBackend,
+    in_feasibility_restoration: bool = False,
+    stop_check: Callable | None = None,
+):
+    """Build (init, step, resume) for the IPM on a fixed problem shape.
+
+    `stop_check(state) -> bool tensor` is read at the top of every
+    iteration; when it holds the solve ends as CALLBACK_REQUESTED_STOP
+    (feasibility restoration's early exit, reference
+    interior_point.hpp:738-756)."""
     n = funcs.num_decision_variables
     me = funcs.num_equality_constraints
     mi = funcs.num_inequality_constraints
@@ -132,6 +149,10 @@ def make_interior_point(funcs: IPMFunctions, options: Options, *, backend: Bande
     device = backend.device
     syncs = backend.syncs
     tol = options.tolerance
+    # Constraint regularization is forced to zero in feasibility
+    # restoration because A_e can't be rank-deficient there (reference
+    # :350-352).
+    gamma_min = 0.0 if in_feasibility_restoration else GAMMA_MIN
 
     def tensor(a):
         return torch.as_tensor(a, dtype=_F64, device=device)
@@ -255,7 +276,7 @@ def make_interior_point(funcs: IPMFunctions, options: Options, *, backend: Bande
 
         # Assemble and factor [H + AᵢᵀΣAᵢ, Aₑᵀ; Aₑ, 0] with inertia
         # correction (reference :428-465)
-        fac = backend.factor(derivs, sigma, st.prev_delta, GAMMA_MIN)
+        fac = backend.factor(derivs, sigma, st.prev_delta, gamma_min)
         if not fac.ok:
             return st._replace(status=int(ExitStatus.FACTORIZATION_FAILED))
 
@@ -491,10 +512,23 @@ def make_interior_point(funcs: IPMFunctions, options: Options, *, backend: Bande
                 _Trial(x, s1, y, clamp_z(z, mu, s1), f, c_e, c_i),
                 st.iterations + 1,
             )
+        # Request restoration from `run_solver` (reference :721-767); if
+        # already restoring, fail (:726-728). The restoration early-stop
+        # check reuses the line search's final α (reference :755).
         return st._replace(
-            status=status_codes.FEASIBILITY_RESTORATION_REQUESTED,
+            status=int(ExitStatus.FEASIBILITY_RESTORATION_FAILED)
+            if in_feasibility_restoration
+            else status_codes.FEASIBILITY_RESTORATION_REQUESTED,
             filt=filt, alpha=alpha, **factored,
         )
+
+    def resume(st: IPMState, x1, s1, y1, z1, iterations: int) -> IPMState:
+        """Resume the solve after feasibility restoration updated the
+        iterates (reference :769-771 then :808-862)."""
+        F = bind(funcs, st.params, st.scaling)
+        x1, s1, y1, z1 = (tensor(a) for a in (x1, s1, y1, z1))
+        trial = _Trial(x1, s1, y1, z1, F.f(x1), F.c_e(x1), F.c_i(x1))
+        return finish_iteration(st, trial, int(iterations) + 1)
 
     # -- full step with iteration-top checks -------------------------------
 
@@ -515,7 +549,11 @@ def make_interior_point(funcs: IPMFunctions, options: Options, *, backend: Bande
             | (_max_abs(st.s) > DIVERGENCE_LIMIT)
             | ~torch.isfinite(st.s).all()
         )
-        infeas_b, diverging_b = syncs.read(infeas, diverging)
+        requested_stop = (
+            stop_check(st) if stop_check is not None
+            else torch.zeros((), dtype=torch.bool, device=device)
+        )
+        infeas_b, diverging_b, stop_b = syncs.read(infeas, diverging, requested_stop)
         # The certificate must persist for 5 consecutive iterations (a
         # robustness improvement over the reference's first crossing,
         # interior_point.hpp:387-403; JAX step :983-990).
@@ -524,6 +562,8 @@ def make_interior_point(funcs: IPMFunctions, options: Options, *, backend: Bande
             return st._replace(status=int(ExitStatus.LOCALLY_INFEASIBLE))
         if diverging_b:
             return st._replace(status=int(ExitStatus.DIVERGING_ITERATES))
+        if stop_b:
+            return st._replace(status=int(ExitStatus.CALLBACK_REQUESTED_STOP))
         return iteration_body(st)
 
-    return init, step
+    return init, step, resume

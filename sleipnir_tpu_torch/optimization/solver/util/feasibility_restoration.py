@@ -1,0 +1,355 @@
+"""Feasibility restoration: minimize constraint violation near the current
+iterate when the line search fails.
+
+Port of `sleipnir_tpu/optimization/solver/util/feasibility_restoration.py`
+(reference solver/util/feasibility_restoration.hpp), banded branch. It
+solves
+
+      min  ρ Σ (pₑ + nₑ + pᵢ + nᵢ) + ζ/2 (x − xᵣ)ᵀDᵣ(x − xᵣ)
+  s.t. cₑ(x) − pₑ + nₑ = 0
+       cᵢ(x) − pᵢ + nᵢ ≥ 0,  pₑ, nₑ, pᵢ, nᵢ ≥ 0
+
+with ρ = 1e3, ζ = √μ_fr, Dᵣ = diag(min(1, 1/xᵣᵢ²)), with a second
+interior-point instance in restoration mode. The relaxation variables of
+a constraint row belong to that row's stage, so the subproblem of a
+stage-banded parent is stage-banded too, with stage width m + 2(p + q),
+and restoration costs O(N) like the parent solve.
+
+An early-stop check replicates the reference's extra iteration callback
+(reference interior_point.hpp:738-756): restoration stops as soon as the
+parent filter would accept the candidate iterate with a 10% lower
+constraint violation; the parent then resumes with least-squares
+multiplier estimates (reference lagrange_multiplier_estimate.hpp:57-135).
+
+The JAX package caches the compiled restoration solver per parent to
+amortise XLA compiles, and passes the per-invocation values through a
+runtime parameter vector. The port runs eagerly and has nothing to
+amortise, so each invocation builds its restoration problem with those
+values captured directly.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from sleipnir_tpu_torch.optimization.solver.exit_status import ExitStatus
+from sleipnir_tpu_torch.optimization.solver.funcs import IPMFunctions, ScalingArrays
+from sleipnir_tpu_torch.optimization.solver.interior_point import (
+    KAPPA_SIGMA,
+    make_interior_point,
+)
+from sleipnir_tpu_torch.optimization.solver.kkt_banded import BandedBackend, StageStructure
+from sleipnir_tpu_torch.optimization.solver.options import Options
+from sleipnir_tpu_torch.optimization.solver.solve_driver import run_solver
+from sleipnir_tpu_torch.optimization.solver.util.filter import try_add
+
+RHO = 1e3  # reference feasibility_restoration.hpp:391
+
+#: Largest n + mᵢ for which the parent resumes with least-squares dual
+#: estimates, which need dense Jacobians; longer horizons resume with
+#: reset duals (JAX package feasibility_restoration.py:747-768).
+DENSE_DUALS_MAX = 6000
+
+_F64 = torch.float64
+
+
+def compute_p_n(c: np.ndarray, rho: float, mu: float):
+    """Initialize relaxation slacks p, n via Ipopt eq (33)
+    (reference feasibility_restoration.hpp:52-100)."""
+    b = rho * c - mu
+    n = (-b + np.sqrt(b * b + 2.0 * rho * mu * c)) / (2.0 * rho)
+    p = c + n
+    return p, n
+
+
+def _numpy(t) -> np.ndarray:
+    if isinstance(t, torch.Tensor):
+        return t.detach().cpu().numpy().astype(np.float64)
+    return np.asarray(t, np.float64)
+
+
+def restore(
+    parent: IPMFunctions,
+    parent_state,
+    options: Options,
+    *,
+    start_time: float | None = None,
+    parent_backend: BandedBackend | None = None,
+):
+    """Run feasibility restoration for an IPM parent on a banded backend.
+
+    Returns (outcome, x, s, y, z, iterations), numpy arrays, where outcome
+    is "resume" (the parent continues) or a terminal ExitStatus.
+    """
+    if parent_backend is None:
+        raise NotImplementedError(
+            "feasibility restoration of a problem without OCP stage structure "
+            "needs the dense KKT backend, which is not ported yet (ROADMAP "
+            "queue 1 item 10)"
+        )
+    x_r = _numpy(parent_state.x)
+    s_r = _numpy(parent_state.s)
+    c_e0 = _numpy(parent_state.c_e)
+    c_i0 = _numpy(parent_state.c_i)
+    mu = float(parent_state.mu)
+
+    def inf_norm(v):
+        return float(np.max(np.abs(v))) if v.shape[0] else 0.0
+
+    # fr_μ = max(μ, ‖cₑ‖_∞, ‖cᵢ − s‖_∞) (reference :396-397)
+    fr_mu = max(mu, inf_norm(c_e0), inf_norm(c_i0 - s_r))
+    zeta = math.sqrt(fr_mu)
+    p_e0, n_e0 = compute_p_n(c_e0, RHO, fr_mu)
+    p_i0, n_i0 = compute_p_n(c_i0 - s_r, RHO, fr_mu)
+    with np.errstate(divide="ignore"):
+        D_r = np.minimum(1.0, 1.0 / np.square(x_r))
+
+    solver = _banded_fr_solver(
+        parent, parent_state, options, parent_backend, x_r, s_r, D_r, zeta, mu,
+        init_viol=float(np.sum(np.abs(c_e0)) + np.sum(np.abs(c_i0 - s_r))),
+    )
+    n, me, mi = solver["dims"]
+    pe_idx, ne_idx, pi_idx, ni_idx = solver["idx"]
+
+    # Starting point: padded-slot dummies at fr_μ, slacks synchronized
+    fr_x0 = np.concatenate([x_r, np.full(solver["n_extra"], fr_mu)])
+    fr_x0[pe_idx] = p_e0
+    fr_x0[ne_idx] = n_e0
+    fr_x0[pi_idx] = p_i0
+    fr_x0[ni_idx] = n_i0
+    fr_s0 = np.concatenate([s_r, fr_x0[n:]])
+    fr_y0 = np.zeros(me)
+    with np.errstate(divide="ignore"):
+        fr_z0 = np.concatenate([fr_mu / s_r, fr_mu / fr_x0[n:]])
+
+    # Inherit the parent's constraint scaling; cost and new rows unscaled
+    # (reference :423-430).
+    psc = parent_state.scaling
+    fr_scaling = ScalingArrays(
+        f=torch.ones((), dtype=_F64, device=psc.c_i.device),
+        c_e=psc.c_e,
+        c_i=torch.cat([psc.c_i, psc.c_i.new_ones(solver["n_extra"])]),
+    )
+    state = solver["init"](
+        fr_x0, fr_s0, fr_y0, fr_z0, fr_mu, parent_state.iterations,
+        parent_state.params, fr_scaling,
+    )
+    state = run_solver(state, solver["step"], options, start_time=start_time)
+
+    status = ExitStatus(int(state.status))
+    x_new = _numpy(state.x[:n])
+    s_new = _numpy(state.s[:mi])
+    iterations_out = int(state.iterations)
+    params = parent_state.params
+
+    def parent_rows(x):
+        xt = torch.as_tensor(x, dtype=_F64, device=params.device)
+        return _numpy(parent.c_e(xt, params, psc)), _numpy(parent.c_i(xt, params, psc))
+
+    def resume_duals(x_res, s_res):
+        # Dense least-squares dual estimation is O(m²n): fine for short
+        # horizons, prohibitive at long ones, where the duals reset and the
+        # parent re-estimates them within a few iterations.
+        if n + mi <= DENSE_DUALS_MAX:
+            xt = torch.as_tensor(x_res, dtype=_F64, device=params.device)
+            g_new = _numpy(parent.g(xt, params, psc))
+            A_e, A_i = _dense_jacobians(parent_backend, x_res, params, psc)
+            y_est, z_est = lagrange_multiplier_estimate(g_new, A_e, A_i, s_res, mu)
+        else:
+            y_est = np.zeros(me)
+            z_est = np.clip(mu / s_res, mu / 1e10, 1e10)
+        return "resume", x_res, s_res, y_est, z_est, iterations_out
+
+    if status == ExitStatus.CALLBACK_REQUESTED_STOP:
+        # The parent filter accepted.
+        return resume_duals(x_new, s_new)
+    if status == ExitStatus.SUCCESS:
+        # Restoration converged. The reference translates this directly to
+        # LOCALLY_INFEASIBLE (reference :623-624); the JAX package resumes
+        # when the parent is feasible or its violation dropped tenfold, and
+        # declares infeasibility only when restoration converged without
+        # meaningful progress.
+        ce_new, ci_new = parent_rows(x_new)
+        eps_feas = max(options.tolerance * 100.0, 1e-10)
+        ce_ok = ce_new.shape[0] == 0 or np.max(np.abs(ce_new)) <= eps_feas
+        ci_ok = ci_new.shape[0] == 0 or np.min(ci_new) >= -eps_feas
+        theta_old = np.sum(np.abs(c_e0)) + np.sum(np.abs(np.minimum(c_i0, 0.0)))
+        theta_new = np.sum(np.abs(ce_new)) + np.sum(np.abs(np.minimum(ci_new, 0.0)))
+        if (ce_ok and ci_ok) or theta_new < 0.1 * theta_old:
+            return resume_duals(x_new, np.maximum(ci_new, mu))
+        return ExitStatus.LOCALLY_INFEASIBLE, x_new, s_new, None, None, iterations_out
+    return ExitStatus.FEASIBILITY_RESTORATION_FAILED, x_new, s_new, None, None, iterations_out
+
+
+def lagrange_multiplier_estimate(g, A_e, A_i, s, mu: float):
+    """Least-squares dual estimate [y; z] = (ÂÂᵀ)⁻¹Â[∇f; −μe] with
+    Â = [Aₑ 0; Aᵢ −S], z clamped to the κ_Σ band
+    (reference solver/util/lagrange_multiplier_estimate.hpp:57-135)."""
+    me = A_e.shape[0]
+    mi = A_i.shape[0]
+    n = g.shape[0]
+    A_hat = np.zeros((me + mi, n + mi))
+    A_hat[:me, :n] = A_e
+    A_hat[me:, :n] = A_i
+    if mi > 0:
+        A_hat[me:, n:] = -np.diag(s)
+    rhs_temp = np.concatenate([g, -mu * np.ones(mi)])
+    lhs = A_hat @ A_hat.T
+    rhs = A_hat @ rhs_temp
+    try:
+        sol = np.linalg.solve(lhs, rhs)
+    except np.linalg.LinAlgError:
+        sol = np.linalg.lstsq(lhs, rhs, rcond=None)[0]
+    y = sol[:me]
+    z = sol[me:]
+    if mi > 0:
+        z = np.clip(z, mu / (KAPPA_SIGMA * s), KAPPA_SIGMA * mu / s)
+    return y, z
+
+
+def _dense_jacobians(backend: BandedBackend, x, params, scaling):
+    """Scaled dense Aₑ (me, n) and Aᵢ (mi, n) at x, assembled on the host
+    from the backend's banded Jacobian rows (its colored JVP probes)."""
+    st = backend.structure
+    ce_loc, ce_next, ci_rows, ci_cols = backend.setup_rows(x, _numpy(params))
+    stages = np.asarray(st.var_perm).reshape(st.num_stages, st.stage_width)
+    A_e = np.zeros((backend.me, backend.n))
+    for r, k in enumerate(np.asarray(st.ce_stage)):
+        A_e[r, stages[k]] = ce_loc[r]
+        if k + 1 < st.num_stages:
+            A_e[r, stages[k + 1]] = ce_next[r]
+    A_i = np.zeros((backend.mi, backend.n))
+    for r in range(backend.mi):
+        A_i[r, ci_cols[r]] = ci_rows[r]
+    return _numpy(scaling.c_e)[:, None] * A_e, _numpy(scaling.c_i)[:, None] * A_i
+
+
+def _banded_fr_solver(parent, parent_state, options, parent_backend, x_r, s_r, D_r,
+                      zeta: float, mu: float, init_viol: float) -> dict:
+    """The restoration interior-point solver of one invocation, on a banded
+    backend over the augmented stage structure: its init and step, and
+    the flat layout of the relaxation variables."""
+    n = parent.num_decision_variables
+    me = parent.num_equality_constraints
+    mi = parent.num_inequality_constraints
+    device = parent_backend.device
+    st = parent_backend.structure
+    K, m, p, q = st.num_stages, st.stage_width, st.eq_pad, st.ineq_pad
+    e2 = 2 * (p + q)  # relaxation slots per stage (incl. padded slots)
+    m2 = m + e2
+    N2 = K * m2
+    MI2 = mi + K * e2
+
+    ce_stage = np.asarray(st.ce_stage)
+    ce_slot = np.asarray(st.ce_slot)
+    ci_stage = np.asarray(st.ci_stage)
+    ci_slot = np.asarray(st.ci_slot)
+
+    # Flat layout: [x (n); extras (K*e2, stage-major)] with per-stage extras
+    # ordered [p_e (p), n_e (p), p_i (q), n_i (q)]. Padded slots become
+    # dummy variables with their own >=0 rows; they cost ρ·t, start at
+    # fr_μ and decay with the barrier, and keep the stage width uniform.
+    pe_idx = n + ce_stage * e2 + ce_slot
+    ne_idx = n + ce_stage * e2 + p + ce_slot
+    pi_idx = n + ci_stage * e2 + 2 * p + ci_slot
+    ni_idx = n + ci_stage * e2 + 2 * p + q + ci_slot
+
+    def dev(a, dtype=torch.int64):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    pe_t, ne_t, pi_t, ni_t = (dev(a) for a in (pe_idx, ne_idx, pi_idx, ni_idx))
+    x_r_t, D_r_t, s_r_t = dev(x_r, _F64), dev(D_r, _F64), dev(s_r, _F64)
+    ones_sc = ScalingArrays(
+        f=dev(1.0, _F64), c_e=torch.ones(me, dtype=_F64, device=device),
+        c_i=torch.ones(mi, dtype=_F64, device=device),
+    )
+
+    def fr_f_raw(xp, prm):
+        diff = xp[:n] - x_r_t
+        return RHO * torch.sum(xp[n:]) + 0.5 * zeta * diff @ (D_r_t * diff)
+
+    def fr_ce_raw(xp, prm):
+        base = parent.c_e(xp[:n], prm, ones_sc)
+        if me == 0:
+            return base
+        return base - xp[pe_t] + xp[ne_t]
+
+    def fr_ci_raw(xp, prm):
+        top = parent.c_i(xp[:n], prm, ones_sc)
+        if mi > 0:
+            top = top - xp[pi_t] + xp[ni_t]
+        return torch.cat([top, xp[n:]])
+
+    # Stage structure of the augmented problem. The port's backend has no
+    # arrowhead border, and a FIXED-dt parent has no border column, so
+    # neither does the augmented problem.
+    parent_staged = np.asarray(st.var_perm).reshape(K, m)
+    var_perm2 = np.empty(N2, dtype=np.int64)
+    for k in range(K):
+        var_perm2[k * m2 : k * m2 + m] = parent_staged[k]
+        var_perm2[k * m2 + m : (k + 1) * m2] = n + k * e2 + np.arange(e2)
+    fr_structure = StageStructure(
+        num_stages=K,
+        stage_width=m2,
+        var_perm=var_perm2,
+        ce_stage=ce_stage,
+        ce_slot=ce_slot,
+        eq_pad=max(p, 1),
+        ci_stage=np.concatenate([ci_stage, np.repeat(np.arange(K), e2)]).astype(np.int64),
+        ci_slot=np.concatenate([ci_slot, np.tile(q + np.arange(e2), K)]).astype(np.int64),
+        ineq_pad=q + e2,
+    )
+    fr_backend = BandedBackend(
+        fr_structure, fr_f_raw, fr_ce_raw, fr_ci_raw, N2, me, MI2, device,
+        parent_backend.syncs,
+    )
+    rho_tail = torch.full((N2 - n,), RHO, dtype=_F64, device=device)
+    fr_funcs = IPMFunctions(
+        num_decision_variables=N2,
+        num_equality_constraints=me,
+        num_inequality_constraints=MI2,
+        f=lambda xp, prm, sc: sc.f * fr_f_raw(xp, prm),
+        g=lambda xp, prm, sc: sc.f * torch.cat([zeta * D_r_t * (xp[:n] - x_r_t), rho_tail]),
+        c_e=lambda xp, prm, sc: sc.c_e * fr_ce_raw(xp, prm),
+        c_i=lambda xp, prm, sc: sc.c_i * fr_ci_raw(xp, prm),
+    )
+
+    # Early-stop check: the parent filter accepts the candidate with a 10%
+    # violation reduction (reference interior_point.hpp:738-756), from the
+    # parent's barrier, step size, gradient and filter at the request.
+    psc = parent_state.scaling
+    s_r_log = float(np.sum(np.log(s_r))) if mi > 0 else 0.0
+    init_cost = dev(float(parent_state.f) - mu * s_r_log, _F64)
+    init_viol_t = dev(init_viol, _F64)
+    alpha = parent_state.alpha
+    parent_g = parent_state.g
+    parent_filter = parent_state.filt
+
+    def stop_check(rst):
+        tx = rst.x[:n]
+        ts = rst.s[:mi]
+        tf = parent.f(tx, rst.params, psc)
+        tce = parent.c_e(tx, rst.params, psc)
+        tci = parent.c_i(tx, rst.params, psc)
+        trial_cost = tf - mu * torch.sum(torch.log(ts))
+        trial_viol = torch.sum(torch.abs(tce)) + torch.sum(torch.abs(tci - ts))
+        D_phi_r = parent_g @ (tx - x_r_t) - mu * torch.sum((ts - s_r_t) / s_r_t)
+        acc, _ = try_add(
+            parent_filter, init_cost, init_viol_t, trial_cost, trial_viol, D_phi_r, alpha
+        )
+        return (trial_viol < 0.9 * init_viol_t) & acc
+
+    fr_init, fr_step, _ = make_interior_point(
+        fr_funcs, options, backend=fr_backend,
+        in_feasibility_restoration=True, stop_check=stop_check,
+    )
+    return {
+        "init": fr_init,
+        "step": fr_step,
+        "dims": (n, me, mi),
+        "n_extra": K * e2,
+        "idx": (pe_idx, ne_idx, pi_idx, ni_idx),
+    }

@@ -173,7 +173,7 @@ def test_device_cache_holds_no_transform_wrapped_tensor():
 
     p, _, _ = tcp.cart_pole_problem(N=5)
     p.solve(device="cpu", max_iterations=2)
-    ((_init, _step, _g, backend),) = p._solver_cache.values()
+    ((*_rest, backend),) = p._solver_cache.values()
     cache = backend.ce_raw.__self__.compiled._device_cache
     assert cache
     assert not any(is_functorch_wrapped_tensor(t) for t in cache.values())

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from sleipnir_tpu.ops import block_tridiag as jbt
@@ -179,3 +180,60 @@ def test_wrappers_run_the_twin_on_cpu_tensors():
     torch.testing.assert_close(x, tbt.block_tridiag_solve(ref, bt), rtol=0, atol=0)
     assert cuda_banded.FACTOR_LAUNCHES == 0
     assert cuda_banded.SOLVE_LAUNCHES == 0
+
+
+def _matvec(D, E, x):
+    """The block-tridiagonal matrix times x (K, w)."""
+    y = np.einsum("kij,kj->ki", D, x)
+    y[1:] += np.einsum("kij,kj->ki", E, x[:-1])
+    y[:-1] += np.einsum("kji,kj->ki", E, x[1:])
+    return y
+
+
+def test_twin_matches_jax_scan_at_a_long_horizon():
+    """K=5001, w=3 (the flywheel at N=5000: 15,003 stage rows, where the
+    TPU takes its chunked kernels): the twin against the JAX package's
+    scan, inertia exactly and solutions to 1e-10."""
+    D, E, b = _random_system(5001, 3, seed=5001)
+    fac, x = _twin(D, E, b)
+    jfac = jbt.block_tridiag_factor(jnp.asarray(D), jnp.asarray(E))
+    xj = np.asarray(jbt.block_tridiag_solve(jfac, jnp.asarray(b)))
+    assert _rel(x, xj) <= 1e-10
+    assert [int(t[0]) for t in tbt.block_tridiag_inertia(fac, EPS)] == [
+        int(v) for v in jbt.block_tridiag_inertia(jfac, EPS)
+    ]
+    assert _rel(_matvec(D, E, x), b) <= 1e-10
+
+
+def test_twin_matches_chunked_pallas_interpret():
+    """The TPU's chunked kernels K3a/K3b in interpret mode, forced into
+    three chunks as tests/ops/test_pallas_banded.py does it (K=150, w=4):
+    inertia exactly, and their solution after two refinement passes
+    against the exact matvec within 1e-10 of the twin's."""
+    rng = np.random.default_rng(11)
+    K, w = 150, 4
+    D = rng.standard_normal((K, w, w))
+    D = D + np.swapaxes(D, 1, 2) + 10 * np.eye(w)
+    D[::4] -= 18 * np.eye(w)
+    E = rng.standard_normal((K - 1, w, w))
+    b = rng.standard_normal((K, w))
+    fac, x = _twin(D, E, b)
+
+    old_max, old_chunk = pb._SINGLE_SHOT_MAX_BYTES, pb._CHUNK
+    pb._SINGLE_SHOT_MAX_BYTES, pb._CHUNK = 1, 64
+    jax.clear_caches()
+    try:
+        assert pb.pallas_is_chunked(K, w)
+        pfac = pb.pallas_banded_factor(jnp.asarray(D), jnp.asarray(E))
+        assert pfac.LUh.shape[0] == 192  # three chunks of 64, padded
+        xp = np.asarray(pb.pallas_banded_solve(pfac, jnp.asarray(b)))
+        for _ in range(2):
+            r = b - _matvec(D, E, xp)
+            xp = xp + np.asarray(pb.pallas_banded_solve(pfac, jnp.asarray(r)))
+        d = np.asarray(pb.pallas_pivots(pfac))
+    finally:
+        pb._SINGLE_SHOT_MAX_BYTES, pb._CHUNK = old_max, old_chunk
+        jax.clear_caches()
+    assert _rel(x, xp) <= 1e-10
+    assert int((d > EPS).sum()) == int((fac.d > EPS).sum())
+    assert int((d < -EPS).sum()) == int((fac.d < -EPS).sum())

@@ -1,4 +1,6 @@
-"""The Hopper kernels K1/K2 against their plain torch twin on the card.
+"""The Hopper kernels against their plain torch versions on the card: the
+block-tridiagonal factor and solve (K1/K2, which also stand for the TPU's
+chunked K3a/K3b at long horizons) and the double-float probe (P).
 
 Needs a CUDA card (the kernels have no CPU mode); every case skips
 without one. This file imports no JAX, so it also runs where only torch is
@@ -13,7 +15,8 @@ import torch
 
 from sleipnir_tpu_torch.interop import banded_system_from_numpy
 from sleipnir_tpu_torch.ops import block_tridiag as tbt
-from sleipnir_tpu_torch.ops import cuda_banded
+from sleipnir_tpu_torch.ops import cuda_banded, cuda_dd_probe
+from sleipnir_tpu_torch.ops import dd as plain_dd
 from sleipnir_tpu_torch.optimization.solver.kkt_banded import EPS_INERTIA
 
 
@@ -35,7 +38,10 @@ def _random_system(rng, B, K, w, r):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize(
-    "B,K,w,r", [(4, 101, 13, None), (1, 101, 13, 3), (2, 40, 37, None), (1, 7, 3, None), (3, 1, 4, None)]
+    "B,K,w,r",
+    [
+        (4, 101, 13, None), (1, 101, 13, 3), (2, 40, 37, None), (1, 7, 3, None), (3, 1, 4, None),
+    ],
 )
 def test_kernels_match_twin_on_card(cuda_device, B, K, w, r):
     D, E, b = _random_system(np.random.default_rng(B * K + w), B, K, w, r)
@@ -48,6 +54,48 @@ def test_kernels_match_twin_on_card(cuda_device, B, K, w, r):
     fp = tbt.block_tridiag_factor(Dg, Eg)
     xp = tbt.block_tridiag_solve(fp, bg)
     assert ((xk - xp).abs().max() / xp.abs().max()).item() <= 1e-10
+    for a, c in zip(tbt.block_tridiag_inertia(fk, EPS_INERTIA), tbt.block_tridiag_inertia(fp, EPS_INERTIA)):
+        assert torch.equal(a, c)
+    assert torch.equal(fk.perm, fp.perm)
+
+
+def _conditioned_system(rng, B, K, w):
+    """Stages Q diag(λ) Qᵀ with |λ| in [20, 40] of random sign, coupled by
+    E = 0.5·randn: every Schur complement stays far from singular."""
+    Q, _ = np.linalg.qr(rng.standard_normal((B, K, w, w)))
+    lam = rng.choice([-1.0, 1.0], (B, K, w)) * rng.uniform(20.0, 40.0, (B, K, w))
+    D = np.einsum("bkij,bkj,bklj->bkil", Q, lam, Q)
+    D = 0.5 * (D + np.swapaxes(D, 2, 3))
+    return D, 0.5 * rng.standard_normal((B, K - 1, w, w)), rng.standard_normal((B, K, w))
+
+
+def _rel(x, ref):
+    return ((x - ref).abs().max() / ref.abs().max()).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "B,K,w,conditioned",
+    [(1, 5001, 3, False), (4, 5001, 4, False), (4, 1001, 13, False), (4, 2001, 37, True)],
+)
+def test_kernels_match_twin_at_long_horizons(cuda_device, B, K, w, conditioned):
+    """Where the TPU takes its chunked kernels (K3a/K3b): the flywheel at
+    N=5000 (its path factors (4, 5001, 4)), cart-pole at N=1000 and its
+    restoration system at N=2000. Random 37-wide stages chained over 2001
+    stages are so ill-conditioned that two correct f64 orderings differ
+    near 1e-10, so that width takes well-conditioned stages. Each kernel
+    is held alone and both together, unrefined."""
+    if conditioned:
+        D, E, b = _conditioned_system(np.random.default_rng(B * K + w), B, K, w)
+    else:
+        D, E, b = _random_system(np.random.default_rng(B * K + w), B, K, w, None)
+    Dg, Eg, bg = banded_system_from_numpy(D, E, b, cuda_device)
+    fk = cuda_banded.banded_factor(Dg, Eg)
+    fp = tbt.block_tridiag_factor(Dg, Eg)
+    xp = tbt.block_tridiag_solve(fp, bg)
+    assert _rel(tbt.block_tridiag_solve(fk, bg), xp) <= 1e-10
+    assert _rel(cuda_banded.banded_solve(fp, bg), xp) <= 1e-10
+    assert _rel(cuda_banded.banded_solve(fk, bg), xp) <= 1e-10
     for a, c in zip(tbt.block_tridiag_inertia(fk, EPS_INERTIA), tbt.block_tridiag_inertia(fp, EPS_INERTIA)):
         assert torch.equal(a, c)
     assert torch.equal(fk.perm, fp.perm)
@@ -81,3 +129,19 @@ def test_wrappers_reject_tensors_on_another_device(cuda_device):
         cuda_banded.banded_factor(Dg, Eg.to(other))
     with pytest.raises(ValueError, match="LU must be on cuda:1"):
         cuda_banded.banded_solve(cuda_banded.banded_factor(Dg, Eg), bg.to(other))
+
+
+@pytest.mark.cuda
+def test_dd_probe_kernels_match_plain_bit_for_bit(cuda_device):
+    from sleipnir_tpu_torch.tools import dd_probe
+
+    x = dd_probe.probe_inputs(cuda_device)
+    before = cuda_dd_probe.LAUNCHES
+    out = dd_probe.run_probe(x, cuda_dd_probe.primitive, cuda_dd_probe.onehot_product)
+    torch.cuda.synchronize()
+    assert cuda_dd_probe.LAUNCHES == before + 6
+    plain = dd_probe.run_probe(x, dd_probe.plain_primitive, plain_dd.onehot_product)
+    assert dd_probe.bitwise_equal(out, plain), dd_probe.max_abs_diff(out, plain)
+    lines = dict(dd_probe.error_lines(x, out))
+    assert lines["two_sum max err"] == 0.0
+    assert lines["two_prod max rel err"] == 0.0

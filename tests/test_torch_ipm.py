@@ -57,7 +57,7 @@ def test_one_step_matches_jax():
 
     tp, _, _ = torch_cart_pole(N=10)
     tp.solve(max_iterations=0, device="cpu")
-    _init, tstep, _g, _backend = tp._prepare_ipm(
+    _init, tstep, *_rest = tp._prepare_ipm(
         tp._compile(), tslp.Options(device="cpu"), torch.device("cpu")
     )
     # Both packages start from the same point.
