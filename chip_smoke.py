@@ -10,9 +10,11 @@ Phases, each of which exits non-zero on failure:
      nvcc per source, all at once;
   3. kernels: the block-tridiagonal factor (K1) and solve (K2) kernels
      against their plain torch versions on CUDA tensors, inertia exactly
-     and solutions to 1e-10 relative, at the main path's shapes and at the
-     long horizons where the TPU takes its chunked kernels (K3a/K3b); each
-     timed with CUDA events;
+     and solutions to 1e-10 relative, at the main path's shapes, at the
+     edges of the kernels' width classes (one row per lane up to w=32, two
+     beyond) and at the long horizons where the TPU takes its chunked
+     kernels (K3a/K3b); each timed with CUDA events, and K1 at (·, 5001, 4)
+     with one system and with the ladder's four;
   4. main path: the cart-pole swing-up at N=100 solved on the card to the
      1e-8 tolerance, once and then twice timed from the initial guess; the
      result must satisfy the RK4 physics oracle and reach the target
@@ -54,6 +56,10 @@ KERNEL_CASES = [  # (name, B, K, w, r); r = 0 is a vector right-hand side
     ("restoration-width", 2, 40, 37, 0),
     ("small", 1, 7, 3, 0),
 ]
+#: The edges of the kernels' width classes (one row per lane up to w=32,
+#: two beyond), at B=1 and B=4 over K=9 well-conditioned stages: random
+#: stages 31 to 37 wide amplify rounding past 1e-10 even over 9 stages.
+EDGE_WIDTHS = (1, 5, 6, 31, 32, 33, 37)
 #: Long horizons (B, K, w, system): the TPU takes its chunked kernels
 #: here. The flywheel at N=5000 factors (4, 5001, 4) and solves
 #: (1, 5001, 4); cart-pole's restoration at N=2000 factors (4, 2001, 37).
@@ -122,6 +128,37 @@ def ipm_like_chain(rng):
             E[0, k, :m, :m] = 0.01 * rng.standard_normal((m, m))
             E[0, k, m:, :m] = rng.standard_normal((p, m))
     return D, E, rng.standard_normal((1, K, w))
+
+
+def restoration_start(n: int, dev: torch.device):
+    """Cart-pole at horizon n from the strongly infeasible iterate of the
+    JAX package's tests/solver/test_banded_restoration.py (seed 7, scale
+    0.3): (funcs, state, options, backend, violation), ready for
+    `feasibility_restoration.restore(funcs, state, options,
+    parent_backend=backend)`; `violation(x)` is the ℓ1 constraint
+    violation at x."""
+    from sleipnir_tpu_torch.models.cart_pole import cart_pole_problem
+    from sleipnir_tpu_torch.optimization.solver.funcs import ScalingArrays
+    from sleipnir_tpu_torch.optimization.solver.options import Options
+
+    cp, _, _ = cart_pole_problem(N=n, total_time=TOTAL_TIME)
+    options = Options(device=dev.type)
+    comp = cp._compile()
+    init, _step, _resume, funcs, g_fn, backend = cp._prepare_ipm(comp, options, dev)
+    params = comp["compiled"].gather_params()
+    x0 = RESTORATION_SCALE * np.random.default_rng(RESTORATION_SEED).standard_normal(comp["n"])
+    scaling, _, _ = cp._ipm_scaling(g_fn, backend, x0, params)
+    state = init(x0, np.ones(comp["mi"]), np.zeros(comp["me"]), np.ones(comp["mi"]),
+                 0.1 * scaling.f, 0, params,
+                 ScalingArrays(f=scaling.f, c_e=scaling.c_e, c_i=scaling.c_i))
+
+    def violation(xv):
+        xt = torch.as_tensor(xv, dtype=torch.float64, device=dev)
+        ce = funcs.c_e(xt, state.params, state.scaling)
+        ci = funcs.c_i(xt, state.params, state.scaling)
+        return float(ce.abs().sum() + torch.clamp(ci, max=0.0).abs().sum())
+
+    return funcs, state, options, backend, violation
 
 
 def cuda_ms(fn, reps: int = 50) -> float:
@@ -197,9 +234,7 @@ def main() -> None:
     from sleipnir_tpu_torch.ops import block_tridiag as plain
     from sleipnir_tpu_torch.ops import cuda_banded, cuda_build, cuda_dd_probe
     from sleipnir_tpu_torch.ops import dd as plain_dd
-    from sleipnir_tpu_torch.optimization.solver.funcs import ScalingArrays
     from sleipnir_tpu_torch.optimization.solver.kkt_banded import EPS_INERTIA
-    from sleipnir_tpu_torch.optimization.solver.options import Options
     from sleipnir_tpu_torch.optimization.solver.util.feasibility_restoration import restore
     from sleipnir_tpu_torch.tools import dd_probe
 
@@ -222,24 +257,32 @@ def main() -> None:
     rng = np.random.default_rng(2024)
     cases = [(name, *random_system(rng, B, K, w, r)) for name, B, K, w, r in KERNEL_CASES]
     cases.append(("ipm-like-chain", *ipm_like_chain(rng)))
+    cases += [(f"edge-w{w}-B{B}", *conditioned_system(rng, B, 9, w))
+              for w in EDGE_WIDTHS for B in (1, 4)]
     for name, D, E, b in cases:
         Dg, Eg, bg = (torch.tensor(a, dtype=torch.float64, device=dev) for a in (D, E, b))
         fk = cuda_banded.banded_factor(Dg, Eg)
         xk = cuda_banded.banded_solve(fk, bg)
         fp = plain.block_tridiag_factor(Dg, Eg)
         xp = plain.block_tridiag_solve(fp, bg)
+        # Each kernel alone (K1: the plain solve on its factor; K2: on the
+        # plain factor) and both together, unrefined.
+        rels = {"both": rel_diff(xk, xp),
+                "K1 alone": rel_diff(plain.block_tridiag_solve(fk, bg), xp),
+                "K2 alone": rel_diff(cuda_banded.banded_solve(fp, bg), xp)}
         torch.cuda.synchronize()
         ik = [t.tolist() for t in plain.block_tridiag_inertia(fk, EPS_INERTIA)]
         ip = [t.tolist() for t in plain.block_tridiag_inertia(fp, EPS_INERTIA)]
-        rel = rel_diff(xk, xp)
         print(f"kernels {name} {tuple(D.shape[:3])}: inertia {ik[0]}/{ik[1]}/{ik[2]} "
-              f"(plain {ip[0]}/{ip[1]}/{ip[2]}), solution rel diff {rel:.3e}", flush=True)
+              f"(plain {ip[0]}/{ip[1]}/{ip[2]}), solution rel diff "
+              + ", ".join(f"{k} {v:.3e}" for k, v in rels.items()), flush=True)
         if ik != ip:
             fail("kernels", f"{name}: inertia {ik} != plain {ip}")
         if not torch.equal(fk.perm, fp.perm):
             fail("kernels", f"{name}: pivot permutations differ from the plain version's")
-        if not rel <= REL_TOL:
-            fail("kernels", f"{name}: solution rel diff {rel:.3e} > {REL_TOL}")
+        for key, rel in rels.items():
+            if not rel <= REL_TOL:
+                fail("kernels", f"{name}: solution rel diff ({key}) {rel:.3e} > {REL_TOL}")
 
     # Errors and times at the main path's shapes: K1 factors the 4-wide
     # ladder (B=4, K=101, w=13); K2 solves one system (B=1) per call.
@@ -297,6 +340,11 @@ def main() -> None:
             "solve_ms": cuda_ms(lambda: cuda_banded.banded_solve(f1, b1), 5),
             "solve_plain_ms": cuda_ms(lambda: plain.block_tridiag_solve(f1, b1), 1),
         }
+        if (B, K, w) == (4, FLYWHEEL_N + 1, 4):
+            # The batch axis: one system against the ladder's four.
+            D1, E1 = Dg[:1].contiguous(), Eg[:1].contiguous()
+            entry["factor_b1_ms"] = cuda_ms(lambda: cuda_banded.banded_factor(D1, E1), 3)
+            del D1, E1
         entry["factor_bound_ms"], entry["factor_bound_by"] = factor_bound(B, K, w)
         entry["solve_bound_ms"], entry["solve_bound_by"] = solve_bound(1, K, w)
         long[B, K, w] = entry
@@ -306,7 +354,9 @@ def main() -> None:
               f"solve alone {entry['solve_rel_err']:.3e}); factor "
               f"{entry['factor_ms']:.3f} ms (plain {entry['factor_plain_ms']:.1f}, bound "
               f"{entry['factor_bound_ms']:.5f}), solve {entry['solve_ms']:.3f} ms (plain "
-              f"{entry['solve_plain_ms']:.1f}, bound {entry['solve_bound_ms']:.5f})", flush=True)
+              f"{entry['solve_plain_ms']:.1f}, bound {entry['solve_bound_ms']:.5f})"
+              + (f"; factor with B=1 {entry['factor_b1_ms']:.3f} ms" if "factor_b1_ms" in entry else ""),
+              flush=True)
         if ik != ip:
             fail("kernels", f"long {(B, K, w)}: inertia {ik} != plain {ip}")
         if not entry["perm_equal"]:
@@ -456,23 +506,7 @@ def main() -> None:
 
     # -- 7. restoration: cart-pole N=2000 -----------------------------------
     t_phase = time.monotonic()
-    cp, _, _ = cart_pole_problem(N=RESTORATION_N, total_time=TOTAL_TIME)
-    options = Options(device="cuda")
-    comp = cp._compile()
-    init, _step, _resume, funcs, g_fn, backend = cp._prepare_ipm(comp, options, dev)
-    params = comp["compiled"].gather_params()
-    x0 = RESTORATION_SCALE * np.random.default_rng(RESTORATION_SEED).standard_normal(comp["n"])
-    scaling, _, _ = cp._ipm_scaling(g_fn, backend, x0, params)
-    state = init(x0, np.ones(comp["mi"]), np.zeros(comp["me"]), np.ones(comp["mi"]),
-                 0.1 * scaling.f, 0, params,
-                 ScalingArrays(f=scaling.f, c_e=scaling.c_e, c_i=scaling.c_i))
-
-    def violation(xv):
-        xt = torch.as_tensor(xv, dtype=torch.float64, device=dev)
-        ce = funcs.c_e(xt, state.params, state.scaling)
-        ci = funcs.c_i(xt, state.params, state.scaling)
-        return float(ce.abs().sum() + torch.clamp(ci, max=0.0).abs().sum())
-
+    funcs, state, options, backend, violation = restoration_start(RESTORATION_N, dev)
     v0 = violation(state.x)
     cuda_banded.reset_counters()
     t0 = time.monotonic()
@@ -505,7 +539,8 @@ def main() -> None:
                 "system": e["system"], "max_abs_err": e[f"{kind}_max_abs_err"],
                 "rel_err": e[f"{kind}_rel_err"], "inertia_equal": e["inertia_equal"],
                 "perm_equal": e["perm_equal"],
-                "ms": e[f"{kind}_ms"], "plain_ms": e[f"{kind}_plain_ms"],
+                "ms": e[f"{kind}_ms"], "us_per_stage": 1e3 * e[f"{kind}_ms"] / K,
+                "plain_ms": e[f"{kind}_plain_ms"],
                 "bound_ms": e[f"{kind}_bound_ms"], "bound_by": e[f"{kind}_bound_by"],
             })
         return {
@@ -519,11 +554,13 @@ def main() -> None:
             # every long shape is listed under "shapes".
             "max_abs_err": fly_long[f"{kind}_max_abs_err"],
             "ms": fly_long[f"{kind}_ms"],
+            "us_per_stage": 1e3 * fly_long[f"{kind}_ms"] / (FLYWHEEL_N + 1),
             "plain_ms": fly_long[f"{kind}_plain_ms"],
             "bound_ms": fly_long[f"{kind}_bound_ms"],
             "bound_by": fly_long[f"{kind}_bound_by"],
             "library_ms": None,
             "shapes": shapes,
+            **({"ms_B1": fly_long["factor_b1_ms"]} if kind == "factor" else {}),
         }
 
     kernels = [
@@ -535,6 +572,7 @@ def main() -> None:
             "launches": launches["factor"],
             "max_abs_err": err_factor,
             "ms": times["factor"],
+            "us_per_stage": 1e3 * times["factor"] / (N + 1),
             "plain_ms": times["factor_plain"],
             **dict(zip(("bound_ms", "bound_by"), factor_bound(4, N + 1, 13))),
             "library_ms": None,
@@ -547,6 +585,7 @@ def main() -> None:
             "launches": launches["solve"],
             "max_abs_err": err_solve,
             "ms": times["solve"],
+            "us_per_stage": 1e3 * times["solve"] / (N + 1),
             "plain_ms": times["solve_plain"],
             **dict(zip(("bound_ms", "bound_by"), solve_bound(1, N + 1, 13))),
             "library_ms": None,
@@ -562,6 +601,7 @@ def main() -> None:
             "max_abs_err": probe["max_abs_diff"],
             "bitwise_equal": probe["bitwise_equal"],
             "ms": probe_ms,
+            "us_per_stage": None,  # no stages
             "plain_ms": probe_plain_ms,
             "bound_ms": probe_bound[0],
             "bound_by": probe_bound[1],

@@ -1,0 +1,182 @@
+"""Time two builds of the block-tridiagonal kernels (K1 factor, K2 solve)
+against each other on one CUDA card.
+
+Run from the repository root:
+
+    python3 kernel_ab.py --baseline PATH/TO/banded.cu [--out FILE]
+
+Builds `sleipnir_tpu_torch/csrc/banded.cu` (the current design) and the
+baseline source, whose factor has the earlier C interface (six pointers,
+no scratch for the inertia pass), each with one `nvcc` for sm_90a,
+printing what ptxas reports. At each of the paths' kernel shapes it then:
+
+  - holds both builds against each other and against the plain torch
+    version: pivots equal, inertia equal, unrefined solutions within 1e-10
+    relative, and whether the two factors and solutions agree bit for bit;
+  - times both with CUDA events in turns, baseline, current, current,
+    baseline, and reports each build's mean over its two turns.
+
+Prints the card's name and power limit first, one line per shape, and a
+JSON object as the last line (also written to --out, by default
+`build/kernel_ab.json`). Exits 1 if a check fails.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from chip_smoke import conditioned_system, cuda_ms, random_system, rel_diff
+
+#: (kind, B, K, w, system, reps per turn): K1 at the ladder's B=4 and, at
+#: the flywheel's horizon, also B=1; K2 at B=1, as the paths call them.
+SHAPES = [
+    ("factor", 4, 101, 13, "random", 50),
+    ("factor", 1, 5001, 4, "random", 5),
+    ("factor", 4, 5001, 4, "random", 5),
+    ("factor", 4, 2001, 37, "conditioned", 3),
+    ("solve", 1, 101, 13, "random", 50),
+    ("solve", 1, 5001, 4, "random", 5),
+    ("solve", 1, 2001, 37, "conditioned", 5),
+]
+REL_TOL = 1e-10
+
+
+def _bind_baseline(path: Path):
+    from sleipnir_tpu_torch.ops import cuda_build
+
+    [(lib_path, log)] = cuda_build.build([cuda_build.Source(path)], verbose=True)
+    lib = ctypes.CDLL(str(lib_path))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.sleipnir_banded_factor.argtypes = [ptr] * 6 + [i32] * 3 + [ptr]
+    lib.sleipnir_banded_factor.restype = i32
+    lib.sleipnir_banded_solve.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
+    lib.sleipnir_banded_solve.restype = i32
+    return lib, log
+
+
+def _p(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _stream() -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def baseline_factor(lib, D, E):
+    from sleipnir_tpu_torch.ops.block_tridiag import BlockTridiagFactor
+
+    B, K, w, _ = D.shape
+    LU = torch.empty_like(D)
+    perm = torch.empty((B, K, w), dtype=torch.int32, device=D.device)
+    d = torch.empty((B, K, w), dtype=torch.float64, device=D.device)
+    X = torch.empty_like(E)
+    err = lib.sleipnir_banded_factor(_p(D), _p(E), _p(LU), _p(perm), _p(d), _p(X), B, K, w,
+                                     _stream())
+    if err:
+        raise RuntimeError(f"baseline factor: CUDA error {err}")
+    return BlockTridiagFactor(LU=LU, perm=perm, d=d, X=X)
+
+
+def baseline_solve(lib, fac, b):
+    B, K, w = b.shape[:3]
+    x = torch.empty_like(b)
+    err = lib.sleipnir_banded_solve(_p(fac.LU), _p(fac.perm), _p(fac.X), _p(b), _p(x), B, K, w, 1,
+                                    _stream())
+    if err:
+        raise RuntimeError(f"baseline solve: CUDA error {err}")
+    return x
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--baseline", type=Path, required=True, help="baseline banded.cu")
+    ap.add_argument("--out", type=Path, default=Path("build/kernel_ab.json"))
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("FAIL: torch.cuda.is_available() is false", file=sys.stderr)
+        return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=False)
+    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed"
+    print(card, flush=True)
+
+    from sleipnir_tpu_torch.ops import block_tridiag as plain
+    from sleipnir_tpu_torch.ops import cuda_banded, cuda_build
+    from sleipnir_tpu_torch.optimization.solver.kkt_banded import EPS_INERTIA
+
+    [(_lib, log)] = cuda_build.build([cuda_banded.SOURCE], verbose=True)
+    old, old_log = _bind_baseline(args.baseline)
+    for name, text in (("current", log), ("baseline", old_log)):
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {name}: {line.strip()}", flush=True)
+
+    dev = torch.device("cuda")
+    systems = {"random": lambda rng, B, K, w: random_system(rng, B, K, w, 0),
+               "conditioned": conditioned_system}
+    rows, ok = [], True
+    for kind, B, K, w, system, reps in SHAPES:
+        D, E, b = systems[system](np.random.default_rng(B * K + w), B, K, w)
+        Dg, Eg, bg = (torch.tensor(a, dtype=torch.float64, device=dev) for a in (D, E, b))
+        fn = cuda_banded.banded_factor(Dg, Eg)
+        fo = baseline_factor(old, Dg, Eg)
+        fp = plain.block_tridiag_factor(Dg, Eg)
+        xp = plain.block_tridiag_solve(fp, bg)
+        if kind == "factor":
+            xn, xo = plain.block_tridiag_solve(fn, bg), plain.block_tridiag_solve(fo, bg)
+            runs = {"baseline": lambda: baseline_factor(old, Dg, Eg),
+                    "current": lambda: cuda_banded.banded_factor(Dg, Eg)}
+        else:
+            xn, xo = cuda_banded.banded_solve(fp, bg), baseline_solve(old, fp, bg)
+            runs = {"baseline": lambda: baseline_solve(old, fp, bg),
+                    "current": lambda: cuda_banded.banded_solve(fp, bg)}
+        torch.cuda.synchronize()
+        inertia = [[t.tolist() for t in plain.block_tridiag_inertia(f, EPS_INERTIA)]
+                   for f in (fn, fo, fp)]
+        row = {
+            "kind": kind, "B": B, "K": K, "w": w, "system": system,
+            "perm_equal": torch.equal(fn.perm, fp.perm) and torch.equal(fo.perm, fp.perm),
+            "inertia_equal": inertia[0] == inertia[2] == inertia[1],
+            "rel_err": rel_diff(xn, xp), "baseline_rel_err": rel_diff(xo, xp),
+            "factor_bitwise_equal": all(torch.equal(a, c) for a, c in zip(fn, fo)),
+            "solution_bitwise_equal": torch.equal(xn, xo),
+        }
+        turns = {"baseline": [], "current": []}
+        for who in ("baseline", "current", "current", "baseline"):
+            turns[who].append(cuda_ms(runs[who], reps))
+        row["turns_ms"] = turns
+        row["baseline_ms"] = sum(turns["baseline"]) / 2
+        row["ms"] = sum(turns["current"]) / 2
+        row["speedup"] = row["baseline_ms"] / row["ms"]
+        row["baseline_us_per_stage"] = 1e3 * row["baseline_ms"] / K
+        row["us_per_stage"] = 1e3 * row["ms"] / K
+        rows.append(row)
+        print(f"{kind} (B={B}, K={K}, w={w}, {system}): baseline {row['baseline_ms']:.4f} ms "
+              f"{turns['baseline']}, current {row['ms']:.4f} ms {turns['current']}, "
+              f"x{row['speedup']:.2f}; {row['us_per_stage']:.3f} us/stage; pivots equal "
+              f"{row['perm_equal']}, inertia equal {row['inertia_equal']}, rel diff "
+              f"{row['rel_err']:.3e} (baseline {row['baseline_rel_err']:.3e}), bitwise equal: "
+              f"factor {row['factor_bitwise_equal']}, solution {row['solution_bitwise_equal']}",
+              flush=True)
+        if not (row["perm_equal"] and row["inertia_equal"] and row["rel_err"] <= REL_TOL):
+            print(f"FAIL: {kind} {(B, K, w)} disagrees with the plain version", file=sys.stderr)
+            ok = False
+        del Dg, Eg, bg, fn, fo, fp, xp, xn, xo, runs
+        torch.cuda.empty_cache()
+    result = {"card": card, "shapes": rows, "ok": ok}
+    args.out.parent.mkdir(parents=True, exist_ok=True)
+    args.out.write_text(json.dumps(result, indent=1))
+    print(json.dumps(result), flush=True)
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -5,6 +5,7 @@ Run from the repository root on a machine with a CUDA card:
     python3 phase_probe.py                                 # cart-pole N=100
     python3 phase_probe.py --problem cart_pole --N 1000
     python3 phase_probe.py --problem flywheel --N 5000
+    python3 phase_probe.py --problem restoration --N 2000
     python3 phase_probe.py --device cpu --N 10 --timed 5 --profiled 3
 
 One solve through `Problem.solve`, run to its end, with the parent's
@@ -26,6 +27,10 @@ c_e and c_i when called outside them (the line search), and `restore`
 include the restoration solver's iterations, as the JAX package counts
 them. The whole solve's wall time, its exit status, and the restoration
 entries with their time and iterations are reported as well.
+
+`--problem restoration` runs feasibility restoration alone, from the
+strongly infeasible cart-pole iterate that `chip_smoke.py` uses, with
+every restoration iteration in the timed window (no profiled window).
 """
 
 from __future__ import annotations
@@ -133,10 +138,50 @@ class Probe:
         return (k1 - k0, t1 - t0) if k1 > k0 else None
 
 
+def report_timed(probe: Probe, iterations: int) -> None:
+    timed = probe.span(1)
+    if timed is None:
+        print(f"timed window: not reached (the solve ended after {iterations} iterations)")
+        return
+    iters, seconds = timed
+    per_it = 1e3 / iters
+    print(f"timed {iters} iterations from iteration {probe.marks[1][0]}: {seconds:.3f} s, "
+          f"{seconds * per_it:.1f} ms/iteration", flush=True)
+    for name, s in probe.seconds.most_common():
+        print(f"  {name:14s} {s * per_it:9.2f} ms/iteration  {100 * s / seconds:5.1f}%  "
+              f"{probe.calls[name]:4d} calls", flush=True)
+    rest = seconds - sum(probe.seconds.values())
+    print(f"  {'(rest)':14s} {rest * per_it:9.2f} ms/iteration  "
+          f"{100 * rest / seconds:5.1f}%", flush=True)
+
+
+def restoration(probe: Probe, device: torch.device, n: int) -> None:
+    """Restoration alone from the infeasible cart-pole iterate, all of it
+    in the timed window."""
+    from chip_smoke import restoration_start  # noqa: PLC0415
+    from sleipnir_tpu_torch.optimization.solver.util.feasibility_restoration import (  # noqa: PLC0415
+        restore,
+    )
+
+    funcs, state, options, backend, violation = restoration_start(n, device)
+    v0 = violation(state.x)
+    probe.window = 1
+    probe.marks[1] = (0, time.perf_counter())
+    outcome, x_new, _s, _y, _z, iterations = restore(funcs, state, options,
+                                                     parent_backend=backend)
+    probe.sync()
+    probe.marks[2] = (iterations, time.perf_counter())
+    probe.window = 3
+    print(f"restoration cart-pole N={n} on {device.type}: {outcome} after {iterations} "
+          f"iterations, violation {v0:.6g} -> {violation(x_new):.6g}", flush=True)
+    report_timed(probe, iterations)
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--device", default="cuda")
-    parser.add_argument("--problem", choices=sorted(PROBLEMS), default="cart_pole")
+    parser.add_argument("--problem", choices=sorted(PROBLEMS) + ["restoration"],
+                        default="cart_pole")
     parser.add_argument("--N", type=int, default=100, help="horizon steps")
     parser.add_argument("--warm", type=int, default=3)
     parser.add_argument("--timed", type=int, default=30)
@@ -168,6 +213,9 @@ def main() -> None:
 
     problem_module.run_solver = run_solver_with_hook
 
+    if args.problem == "restoration":
+        restoration(probe, device, args.N)
+        return
     problem, _X, _U = PROBLEMS[args.problem](N=args.N, total_time=5.0)
     t0 = time.perf_counter()
     status = problem.solve(device=args.device)
@@ -183,20 +231,7 @@ def main() -> None:
     print(f"restoration: {len(probe.restorations)} entries, {restore_it} iterations, "
           f"{restore_s:.3f} s", flush=True)
 
-    timed = probe.span(1)
-    if timed is None:
-        print(f"timed window: not reached (the solve ended after {stats.iterations} iterations)")
-    else:
-        iters, seconds = timed
-        per_it = 1e3 / iters
-        print(f"timed {iters} iterations from iteration {probe.marks[1][0]}: {seconds:.3f} s, "
-              f"{seconds * per_it:.1f} ms/iteration", flush=True)
-        for name, s in probe.seconds.most_common():
-            print(f"  {name:14s} {s * per_it:9.2f} ms/iteration  {100 * s / seconds:5.1f}%  "
-                  f"{probe.calls[name]:4d} calls", flush=True)
-        rest = seconds - sum(probe.seconds.values())
-        print(f"  {'(rest)':14s} {rest * per_it:9.2f} ms/iteration  "
-              f"{100 * rest / seconds:5.1f}%", flush=True)
+    report_timed(probe, stats.iterations)
 
     profiled = probe.span(2)
     if profiled is None:

@@ -2,20 +2,25 @@
 
 Replaces the TPU kernels `sleipnir_tpu/ops/pallas_banded.py`:
 `pallas_banded_factor` (body `_factor_kernel`) and `pallas_banded_solve`
-(body `_solve_kernel`). The CUDA C++ source is `csrc/banded.cu`; its head
-comment says what bounds the kernels on the card (latency: K dependent
-stages of block-synchronised steps, far from the f64 rate or the memory
-bandwidth) and what the design does about it (stage working set in shared
-memory, parallelism from the batch axis).
+(body `_solve_kernel`). The CUDA C++ source is `csrc/banded.cu`. What
+bounds the kernels on the card is per-stage latency: each system is one
+chain of K dependent stages, far from the f64 rate or the memory
+bandwidth. So one warp runs each chain with warp-level steps only
+(shuffles and `__syncwarp`, no block-wide barrier), the next stages'
+blocks are copied into shared memory ahead of their use, and what does
+not feed the chain runs beside it in parallel: the inertia pivots of
+every S_k in a second launch of the factor, and the block solves
+S_k⁻¹y_k of every stage between the solve's two sweeps.
 
 The kernels are built with `nvcc` for `sm_90a` at first use by
 `ops/cuda_build.py` and bound through `ctypes`.
 
-A wrapper given CUDA tensors launches its kernel or raises; given CPU
+A wrapper given CUDA tensors launches its kernels or raises; given CPU
 tensors it runs the plain twin in `ops/block_tridiag.py`. The launch
-counters `FACTOR_LAUNCHES` and `SOLVE_LAUNCHES` count kernel launches
-only, and `LAUNCHES_BY_SHAPE` counts them by (kind, B, K, w), so a run
-can show which shapes reached the kernels. The TPU's chunked kernels
+counters `FACTOR_LAUNCHES` and `SOLVE_LAUNCHES` count wrapper calls that
+launched (the factor is two kernel launches, the solve three), and
+`LAUNCHES_BY_SHAPE` counts them by (kind, B, K, w), so a run can show
+which shapes reached the kernels. The TPU's chunked kernels
 (`_pallas_factor_chunked`, `_pallas_solve_chunked`), which long horizons
 take there, have no separate counterpart: these kernels stream every
 stage's blocks from device memory whatever K is.
@@ -59,7 +64,7 @@ def _library():
         [(path, _log)] = cuda_build.build([SOURCE])
         lib = ctypes.CDLL(str(path))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.sleipnir_banded_factor.argtypes = [ptr] * 6 + [i32] * 3 + [ptr]
+        lib.sleipnir_banded_factor.argtypes = [ptr] * 7 + [i32] * 3 + [ptr]
         lib.sleipnir_banded_factor.restype = i32
         lib.sleipnir_banded_solve.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
         lib.sleipnir_banded_solve.restype = i32
@@ -117,9 +122,10 @@ def banded_factor(D: torch.Tensor, E: torch.Tensor) -> BlockTridiagFactor:
     perm = torch.empty((B, K, w), dtype=torch.int32, device=D.device)
     d = torch.empty((B, K, w), dtype=torch.float64, device=D.device)
     X = torch.empty_like(E)
+    S = torch.empty_like(D)  # the chain's S_k, read by the inertia pass
     with torch.cuda.device(D.device):
         err = lib.sleipnir_banded_factor(
-            _ptr(D), _ptr(E), _ptr(LU), _ptr(perm), _ptr(d), _ptr(X),
+            _ptr(D), _ptr(E), _ptr(LU), _ptr(perm), _ptr(d), _ptr(X), _ptr(S),
             B, K, w, _stream(),
         )
     _check(lib, err, "banded_factor")

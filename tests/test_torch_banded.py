@@ -74,7 +74,9 @@ def _rel(a, b):
     return np.abs(a - b).max() / np.abs(b).max()
 
 
-@pytest.mark.parametrize("K,w", [(1, 4), (7, 3), (25, 5), (40, 13), (5, 37)])
+@pytest.mark.parametrize(
+    "K,w", [(1, 4), (7, 3), (25, 5), (40, 13), (5, 37), (6, 32), (6, 33), (3, 1)]
+)
 def test_twin_matches_dense_eigvalsh_and_jax_scan(K, w):
     D, E, b = _random_system(K, w)
     fac, x = _twin(D, E, b)
@@ -91,6 +93,34 @@ def test_twin_matches_dense_eigvalsh_and_jax_scan(K, w):
     assert [int(v) for v in jbt.block_tridiag_inertia(jfac, EPS)] == [pos, neg, zero]
     # The unpivoted-LDLᵀ pivots are the same recursion in both packages.
     np.testing.assert_allclose(fac.d[0].numpy(), np.asarray(jfac.d), rtol=1e-9, atol=1e-12)
+
+
+def _tie_system(K, w, seed):
+    """A random system whose S_0 and S_3 have a tie in column 0: rows 2 and
+    4 hold ±7, the largest |entry|. E_2 = 0, so S_3 = D_3 exactly."""
+    D, E, b = _random_system(K, w, seed=seed)
+    for k in (0, 3):
+        D[k, :, 0] = D[k, 0, :] = 0.5
+        D[k, 0, 0] = 1.0
+        D[k, 2, 0] = D[k, 0, 2] = 7.0
+        D[k, 4, 0] = D[k, 0, 4] = -7.0
+    E[2] = 0.0
+    return D, E, b
+
+
+@pytest.mark.parametrize("w", [5, 13])
+def test_twin_tie_column_takes_the_first_row_and_matches_jax_scan(w):
+    """LAPACK's rule on a tie: the first row holding the largest |entry|
+    is the pivot, here row 2 of S_0 and of S_3."""
+    D, E, b = _tie_system(6, w, seed=w)
+    fac, x = _twin(D, E, b)
+    assert int(fac.perm[0, 0, 0]) == 2 and int(fac.perm[0, 3, 0]) == 2
+    jfac = jbt.block_tridiag_factor(jnp.asarray(D), jnp.asarray(E))
+    xj = np.asarray(jbt.block_tridiag_solve(jfac, jnp.asarray(b)))
+    assert _rel(x, xj) <= 1e-11
+    assert [int(t[0]) for t in tbt.block_tridiag_inertia(fac, EPS)] == [
+        int(v) for v in jbt.block_tridiag_inertia(jfac, EPS)
+    ]
 
 
 def test_twin_factor_layout():

@@ -59,6 +59,109 @@ def test_kernels_match_twin_on_card(cuda_device, B, K, w, r):
     assert torch.equal(fk.perm, fp.perm)
 
 
+def _rels(fk, fp, bg):
+    """Unrefined relative differences from the plain solution: both kernels,
+    K1 alone (the plain solve on its factor), K2 alone (on the plain
+    factor)."""
+    xp = tbt.block_tridiag_solve(fp, bg)
+    return (_rel(cuda_banded.banded_solve(fk, bg), xp), _rel(tbt.block_tridiag_solve(fk, bg), xp),
+            _rel(cuda_banded.banded_solve(fp, bg), xp))
+
+
+def _assert_inertia_equal(fk, fp):
+    for a, c in zip(tbt.block_tridiag_inertia(fk, EPS_INERTIA), tbt.block_tridiag_inertia(fp, EPS_INERTIA)):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("w", [1, 5, 6, 31, 32, 33, 37])
+def test_kernels_match_twin_at_width_edges(cuda_device, B, w):
+    """The edges of the kernels' width classes: one row per lane up to
+    w=32, two rows per lane beyond; a butterfly of 1 to 32 lanes. On
+    well-conditioned stages: random stages 31 to 37 wide amplify rounding
+    past 1e-10 even over 9 stages."""
+    D, E, b = _conditioned_system(np.random.default_rng(100 + w), B, 9, w)
+    Dg, Eg, bg = banded_system_from_numpy(D, E, b, cuda_device)
+    before = cuda_banded.FACTOR_LAUNCHES, cuda_banded.SOLVE_LAUNCHES
+    fk = cuda_banded.banded_factor(Dg, Eg)
+    assert (cuda_banded.FACTOR_LAUNCHES, cuda_banded.SOLVE_LAUNCHES) == (before[0] + 1, before[1])
+    cuda_banded.banded_solve(fk, bg)
+    torch.cuda.synchronize()
+    assert (cuda_banded.FACTOR_LAUNCHES, cuda_banded.SOLVE_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    fp = tbt.block_tridiag_factor(Dg, Eg)
+    assert max(_rels(fk, fp, bg)) <= 1e-10
+    _assert_inertia_equal(fk, fp)
+    assert torch.equal(fk.perm, fp.perm)
+
+
+def _tie_system(rng, B, K, w):
+    """S_0 and S_3 have a tie in column 0: rows 2 and 4 hold ±7, the
+    largest |entry|. E_2 = 0, so S_3 = D_3 exactly."""
+    D, E, b = _random_system(rng, B, K, w, None)
+    for k in (0, 3):
+        D[:, k, :, 0] = D[:, k, 0, :] = 0.5
+        D[:, k, 0, 0] = 1.0
+        D[:, k, 2, 0] = D[:, k, 0, 2] = 7.0
+        D[:, k, 4, 0] = D[:, k, 0, 4] = -7.0
+    E[:, 2] = 0.0
+    return D, E, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [5, 13, 33])
+def test_tie_column_takes_the_first_row(cuda_device, w):
+    D, E, b = _tie_system(np.random.default_rng(w), 2, 6, w)
+    Dg, Eg, bg = banded_system_from_numpy(D, E, b, cuda_device)
+    fk = cuda_banded.banded_factor(Dg, Eg)
+    fp = tbt.block_tridiag_factor(Dg, Eg)
+    assert fk.perm[:, 0, 0].tolist() == [2, 2] and fk.perm[:, 3, 0].tolist() == [2, 2]
+    assert torch.equal(fk.perm, fp.perm)
+    _assert_inertia_equal(fk, fp)
+    assert max(_rels(fk, fp, bg)) <= 1e-10
+
+
+@pytest.mark.cuda
+def test_zero_pivot_column_is_kept_unscaled(cuda_device):
+    """The last stage's S_k has an all-zero row and column 2, so its LU
+    meets a zero pivot at column 2: the row at that position stays, nothing
+    is scaled by it, the pivot d is 0 and the solve is not finite."""
+    D, E, b = _random_system(np.random.default_rng(3), 2, 5, 6, None)
+    D[:, 4, 2, :] = D[:, 4, :, 2] = 0.0
+    E[:, 3] = 0.0
+    Dg, Eg, bg = banded_system_from_numpy(D, E, b, cuda_device)
+    fk = cuda_banded.banded_factor(Dg, Eg)
+    x = cuda_banded.banded_solve(fk, bg)
+    torch.cuda.synchronize()
+    fp = tbt.block_tridiag_factor(Dg, Eg)
+    assert torch.equal(fk.perm, fp.perm)
+    _assert_inertia_equal(fk, fp)
+    assert tbt.block_tridiag_inertia(fk, EPS_INERTIA)[2].tolist() == [1, 1]
+    assert fk.LU[:, 4, 2, 2].tolist() == [0.0, 0.0]
+    assert torch.isfinite(fk.LU[:, :4]).all() and torch.isfinite(fk.X).all()
+    assert not torch.isfinite(x).all()
+
+
+@pytest.mark.cuda
+def test_nan_in_d_gives_non_finite_pivots_and_returns(cuda_device):
+    """A NaN in system 0's D_3: its inertia pivots come out non-finite (the
+    ladder's `isfinite` check rejects it), the kernels return, and system 1
+    of the same launch is untouched."""
+    D, E, b = _random_system(np.random.default_rng(4), 2, 6, 5, None)
+    D[0, 3, 1, 1] = np.nan
+    Dg, Eg, bg = banded_system_from_numpy(D, E, b, cuda_device)
+    fk = cuda_banded.banded_factor(Dg, Eg)
+    x = cuda_banded.banded_solve(fk, bg)
+    torch.cuda.synchronize()
+    assert torch.isfinite(fk.d).flatten(1).all(dim=1).tolist() == [False, True]
+    assert not torch.isfinite(x[0]).all()
+    fp = tbt.block_tridiag_factor(Dg[1:].contiguous(), Eg[1:].contiguous())
+    f1 = tbt.BlockTridiagFactor(*(t[1:].contiguous() for t in fk))
+    assert torch.equal(f1.perm, fp.perm)
+    _assert_inertia_equal(f1, fp)
+    assert max(_rels(f1, fp, bg[1:].contiguous())) <= 1e-10
+
+
 def _conditioned_system(rng, B, K, w):
     """Stages Q diag(λ) Qᵀ with |λ| in [20, 40] of random sign, coupled by
     E = 0.5·randn: every Schur complement stays far from singular."""
