@@ -19,17 +19,27 @@ Phases, each of which exits non-zero on failure:
      1e-8 tolerance, once and then twice timed from the initial guess; the
      result must satisfy the RK4 physics oracle and reach the target
      state, and both kernels must have been launched by the solves;
-  5. precision probe: `sleipnir_tpu_torch.tools.dd_probe` on the card; its
-     double-float kernels must equal their plain version bit for bit;
+  5. precision probe: `sleipnir_tpu_torch.tools.dd_probe` on the card, one
+     kernel launch per probe run; every double-float output must equal
+     its plain version bit for bit and the one-hot product torch.matmul's;
+     each part is timed host-paced (back-to-back calls) and on the device
+     (one call), beside torch.matmul, with the single TF32 pass's error;
   6. long horizon: the flywheel at N=5000 solved on the card, once and
      then once timed from the zero guess; it must reach SUCCESS, pass the
      numpy oracle, and launch K1/K2 at K=5001;
   7. restoration: banded feasibility restoration from a strongly
      infeasible cart-pole N=2000 iterate; it must hand the iterate back
      ("resume") with a violation below 0.95 of the start's, running K1/K2
-     on the 37-wide restoration system.
+     on the 37-wide restoration system;
+  8. banded SQP: the flywheel without input bounds at N=5000, equality
+     constraints only, solved once and then once timed by SQP on the
+     banded backend (K=5001); SUCCESS, x_0 = 0, x_N > 9.9, the dynamics to
+     1e-7, and K1/K2 launched at K=5001;
+  9. dense path: the README example through SQP (x = 18, y = 6) and the
+     plain-Problem flywheel at N=1000 through the dense interior-point
+     method, which must pass the numpy oracle.
 
-Launch counts are reset just before each path (phases 4-7) and read just
+Launch counts are reset just before each path (phases 4-9) and read just
 after it. The last two lines of output are a JSON object of per-kernel
 results and a JSON object naming the device.
 """
@@ -71,6 +81,9 @@ LONG_CASES = [
     (4, 5001, 13, "random"), (4, 2001, 37, "conditioned"),
 ]
 FLYWHEEL_N = 5000
+#: The plain-Problem flywheel on the dense path, at the JAX package's
+#: default horizon.
+DENSE_FLYWHEEL_N = 1000
 RESTORATION_N, RESTORATION_SEED, RESTORATION_SCALE = 2000, 7, 0.3
 #: Stage rows K·w above which the TPU package takes its chunked kernels:
 #: ⌈K·w/8⌉·4096 bytes over its 3.5 MB single-shot budget
@@ -174,6 +187,26 @@ def cuda_ms(fn, reps: int = 50) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int = 20) -> float:
+    """The device time of one call (median of `reps`): the card first runs
+    a sleep kernel of about half a millisecond, so the call is enqueued
+    before the start event runs and the events hold the device's work,
+    not the host's."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(1_000_000)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
 def rel_diff(x, ref) -> float:
     return ((x - ref).abs().max() / ref.abs().max()).item()
 
@@ -224,7 +257,7 @@ def main() -> None:
     dev = torch.device("cuda")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {kind}", flush=True)
 
-    from sleipnir_tpu_torch import ExitStatus
+    from sleipnir_tpu_torch import ExitStatus, Problem
     from sleipnir_tpu_torch.models import flywheel
     from sleipnir_tpu_torch.models.cart_pole import (
         cart_pole_problem,
@@ -424,19 +457,28 @@ def main() -> None:
     cuda_dd_probe.reset_counters()
     probe = dd_probe.main(["--device", "cuda"])
     probe_launches = cuda_dd_probe.LAUNCHES
-    if probe_launches == 0:
-        fail("precision probe", "the probe kernels were never launched")
+    if probe_launches != 1:
+        fail("precision probe", f"a probe run took {probe_launches} launches, not one")
     if not probe.get("bitwise_equal"):
-        fail("precision probe", "the kernels differ from the plain version")
+        fail("precision probe", "the kernel differs from the plain version")
     x = dd_probe.probe_inputs(dev)
-    probe_ms = cuda_ms(lambda: dd_probe.run_probe(x, cuda_dd_probe.primitive,
-                                                  cuda_dd_probe.onehot_product))
+    matmul = torch.matmul(x["P"], x["Mh"])
+    fused, _single = dd_probe.run_fused(x)
+    for label, product in (("probe", fused["onehot"][0]),
+                           ("onehot_product", cuda_dd_probe.onehot_product(x["P"], x["Mh"]))):
+        if not torch.equal(product.view(torch.int32), matmul.view(torch.int32)):
+            fail("precision probe", f"the {label} one-hot product differs from torch.matmul")
+    # The whole probe run is the wrapper call that launches it.
+    probe_args = (x["ah"], x["al"], x["bh"], x["bl"], x["P"], x["Mh"])
+    probe_ms = cuda_ms(lambda: cuda_dd_probe.probe(*probe_args))
+    probe_device_ms = device_ms(lambda: cuda_dd_probe.probe(*probe_args))
     probe_plain_ms = cuda_ms(lambda: dd_probe.run_probe(x, dd_probe.plain_primitive,
                                                         plain_dd.onehot_product))
-    # Each of the six kernels alone. Bounds: float32 operations per element
-    # as ops/dd.py writes them, inputs read once and (hi, lo) written once.
-    # Only the one-hot product has a single library call: torch.matmul
-    # (float32; TF32 is off by default), timed here and used nowhere else.
+    # Each part alone, through its thin call into the same kernel. Bounds:
+    # float32 operations per element as ops/dd.py writes them, inputs read
+    # once and (hi, lo) written once. Only the one-hot product has a single
+    # library call: torch.matmul (float32; TF32 is off by default), timed
+    # here and used nowhere else.
     n_el, w_oh = x["ah"].numel(), x["P"].shape[0]
     primitives = (("two_sum", 6, 2), ("two_prod", 17, 2), ("add2", 20, 4),
                   ("mul2", 24, 4), ("div2", 114, 4))
@@ -446,32 +488,41 @@ def main() -> None:
         probe_parts.append({
             "name": name,
             "ms": cuda_ms(lambda: cuda_dd_probe.primitive(name, *args)),
+            "device_ms": device_ms(lambda: cuda_dd_probe.primitive(name, *args)),
             "plain_ms": cuda_ms(lambda: dd_probe.plain_primitive(name, *args)),
             **dict(zip(("bound_ms", "bound_by"),
                        bound(ops * n_el, F32_PER_S, 4 * n_el * (n_in + 2)))),
             "library_ms": None,
         })
-    onehot_exact = torch.equal(torch.matmul(x["P"], x["Mh"]),
-                               cuda_dd_probe.onehot_product(x["P"], x["Mh"]))
     probe_parts.append({
         "name": "onehot_product",
         "ms": cuda_ms(lambda: cuda_dd_probe.onehot_product(x["P"], x["Mh"])),
+        "device_ms": device_ms(lambda: cuda_dd_probe.onehot_product(x["P"], x["Mh"])),
         "plain_ms": cuda_ms(lambda: plain_dd.onehot_product(x["P"], x["Mh"])),
         **dict(zip(("bound_ms", "bound_by"),
                    bound(2.0 * w_oh**3, F32_PER_S, 4 * 3 * w_oh * w_oh))),
         "library_ms": cuda_ms(lambda: torch.matmul(x["P"], x["Mh"])),
+        "library_device_ms": device_ms(lambda: torch.matmul(x["P"], x["Mh"])),
+        "equals_library": True,
     })
+    matmul_ms = probe_parts[-1]["library_ms"]
+    targets = {"probe_vs_matmul": probe_ms <= matmul_ms,
+               "onehot_vs_matmul": probe_parts[-1]["ms"] <= matmul_ms}
     # The whole probe: inputs (ah, al, bh, bl, P, Mh) read once, its ten
-    # element outputs and the product written once.
-    probe_bound = bound(sum(ops for _n, ops, _i in primitives) * n_el + 2.0 * w_oh**3, F32_PER_S,
-                        4 * (4 * n_el + 2 * w_oh * w_oh) + 4 * (10 * n_el + w_oh * w_oh))
-    print(f"precision probe: {probe_launches} launches, bitwise equal to the plain version, "
-          f"{probe_ms:.4f} ms (plain {probe_plain_ms:.4f}); "
-          + ", ".join(f"{p['name']} {p['ms']:.4f} ms (plain {p['plain_ms']:.4f}"
-                      + ("" if p["library_ms"] is None else f", torch.matmul {p['library_ms']:.4f}")
+    # element outputs and the two products (exact, one TF32 pass) written
+    # once.
+    probe_bound = bound(sum(ops for _n, ops, _i in primitives) * n_el + 4.0 * w_oh**3, F32_PER_S,
+                        4 * (4 * n_el + 2 * w_oh * w_oh) + 4 * (10 * n_el + 2 * w_oh * w_oh))
+    print(f"precision probe: {probe_launches} launch per run, bitwise equal to the plain version "
+          f"and to torch.matmul; one TF32 pass errs by {probe['tf32_single_pass_max_err']}; "
+          f"whole probe {probe_ms:.4f} ms host-paced, {probe_device_ms:.4f} ms on the device "
+          f"(plain {probe_plain_ms:.4f}); "
+          + ", ".join(f"{p['name']} {p['ms']:.4f} ms (device {p['device_ms']:.4f}, plain "
+                      f"{p['plain_ms']:.4f}"
+                      + ("" if p["library_ms"] is None else
+                         f", torch.matmul {p['library_ms']:.4f}, device {p['library_device_ms']:.4f}")
                       + ")" for p in probe_parts)
-          + f"; one-hot kernel equals torch.matmul: {onehot_exact}; phase "
-          f"{time.monotonic() - t_phase:.1f} s", flush=True)
+          + f"; targets met {targets}; phase {time.monotonic() - t_phase:.1f} s", flush=True)
 
     # -- 6. long horizon: flywheel N=5000 -----------------------------------
     t_phase = time.monotonic()
@@ -527,8 +578,98 @@ def main() -> None:
             fail("restoration", f"no {k} launch at K={RESTORATION_N + 1}, w=37: {fr_shapes}")
     print(f"restoration phase: {time.monotonic() - t_phase:.1f} s", flush=True)
 
+    # -- 8. SQP on the banded kernels: flywheel without input bounds --------
+    t_phase = time.monotonic()
+    sqp, SX, SU = flywheel.flywheel_unbounded_problem(N=FLYWHEEL_N, total_time=TOTAL_TIME)
+    cuda_banded.reset_counters()
+    t0 = time.monotonic()
+    status = sqp.solve(device="cuda")
+    torch.cuda.synchronize()
+    sqp_first_s = time.monotonic() - t0
+    if status != ExitStatus.SUCCESS:
+        fail("banded SQP", f"first solve ended {status}")
+    SX.set_value(np.zeros((1, FLYWHEEL_N + 1)))
+    SU.set_value(np.zeros((1, FLYWHEEL_N + 1)))
+    cuda_banded.reset_counters()
+    t0 = time.monotonic()
+    status = sqp.solve(device="cuda")
+    torch.cuda.synchronize()
+    sqp_s = time.monotonic() - t0
+    sqp_shapes = dict(cuda_banded.LAUNCHES_BY_SHAPE)
+    sqp_iters = sqp.last_solve_stats.iterations
+    if status != ExitStatus.SUCCESS:
+        fail("banded SQP", f"timed solve ended {status}")
+    [sqp_cached] = [v for k, v in sqp._solver_cache.items() if k[0] == "sqp"]
+    sqp_backend = sqp_cached[-1]
+    if type(sqp_backend).__name__ != "BandedBackend" or sqp_backend.K != FLYWHEEL_N + 1:
+        fail("banded SQP", f"the solve ran on {type(sqp_backend).__name__}, not the banded "
+             f"backend with K={FLYWHEEL_N + 1}")
+    Xs, Us = SX.value(), SU.value()
+    a = math.exp(-TOTAL_TIME / FLYWHEEL_N)
+    sqp_dyn = float(np.abs(Xs[0, 1:] - (a * Xs[0, :-1] + (1.0 - a) * Us[0, :FLYWHEEL_N])).max())
+    print(f"banded SQP flywheel N={FLYWHEEL_N} without input bounds: {status}, {sqp_iters} "
+          f"iterations, first solve {sqp_first_s:.2f} s, timed solve {sqp_s:.3f} s "
+          f"({sqp_s * 1e3 / max(sqp_iters, 1):.1f} ms/iteration), backend "
+          f"{type(sqp_backend).__name__} K={sqp_backend.K} stage width w={sqp_backend.w}, "
+          f"x_0 {Xs[0, 0]:.3e}, x_N {Xs[0, -1]:.6f}, dynamics residual {sqp_dyn:.3e}, "
+          f"launches {sqp_shapes}", flush=True)
+    if not abs(Xs[0, 0]) < 1e-9:
+        fail("banded SQP", f"x_0 = {Xs[0, 0]}")
+    if not Xs[0, FLYWHEEL_N] > 9.9:
+        fail("banded SQP", f"x_N = {Xs[0, FLYWHEEL_N]} is not above 9.9")
+    if not sqp_dyn <= 1e-7:
+        fail("banded SQP", f"dynamics residual {sqp_dyn:.3e} above 1e-7")
+    for k in ("factor", "solve"):
+        if not any(kk == k and K == FLYWHEEL_N + 1 for kk, _b, K, _w in sqp_shapes):
+            fail("banded SQP", f"no {k} launch at K={FLYWHEEL_N + 1}: {sqp_shapes}")
+    print(f"banded SQP phase: {time.monotonic() - t_phase:.1f} s", flush=True)
+
+    # -- 9. the dense path: README (SQP) and the plain-Problem flywheel -----
+    t_phase = time.monotonic()
+    readme = Problem()
+    rx, ry = readme.decision_variable(), readme.decision_variable()
+    rx.set_value(1.0)
+    ry.set_value(2.0)
+    readme.maximize(rx * ry)
+    readme.subject_to(rx + 3 * ry == 36)
+    t0 = time.monotonic()
+    status = readme.solve(device="cuda")
+    torch.cuda.synchronize()
+    readme_s = time.monotonic() - t0
+    [readme_cached] = [v for k, v in readme._solver_cache.items() if k[0] == "sqp"]
+    print(f"README example (SQP, {type(readme_cached[-1]).__name__}): {status}, "
+          f"{readme.last_solve_stats.iterations} iterations, {readme_s:.3f} s, x = {rx.value()}, "
+          f"y = {ry.value()}", flush=True)
+    if status != ExitStatus.SUCCESS or not (abs(rx.value() - 18.0) <= 1e-8
+                                            and abs(ry.value() - 6.0) <= 1e-8):
+        fail("dense path", f"README example: {status}, x = {rx.value()}, y = {ry.value()}")
+    dense_fly, DX, DU = flywheel.flywheel_problem(N=DENSE_FLYWHEEL_N, total_time=TOTAL_TIME,
+                                                  fast=False)
+    cuda_banded.reset_counters()
+    t0 = time.monotonic()
+    status = dense_fly.solve(device="cuda")
+    torch.cuda.synchronize()
+    dense_s = time.monotonic() - t0
+    dense_iters = dense_fly.last_solve_stats.iterations
+    [dense_cached] = [v for k, v in dense_fly._solver_cache.items() if k[0] == "ipm"]
+    dense_failures = flywheel.oracle_failures(DX.value(), DU.value(), TOTAL_TIME)
+    print(f"plain-Problem flywheel N={DENSE_FLYWHEEL_N} (dense IPM, "
+          f"{type(dense_cached[-1]).__name__}, KKT size "
+          f"{dense_cached[-1].n + dense_cached[-1].me}): {status}, {dense_iters} iterations, "
+          f"{dense_s:.2f} s ({dense_s * 1e3 / max(dense_iters, 1):.1f} ms/iteration), oracle "
+          f"failures {len(dense_failures)}, banded launches {dict(cuda_banded.LAUNCHES_BY_SHAPE)}",
+          flush=True)
+    if status != ExitStatus.SUCCESS:
+        fail("dense path", f"plain-Problem flywheel ended {status}")
+    if type(dense_cached[-1]).__name__ != "DenseBackend":
+        fail("dense path", f"the flywheel ran on {type(dense_cached[-1]).__name__}")
+    if dense_failures:
+        fail("dense path", "flywheel oracle: " + "; ".join(dense_failures[:5]))
+    print(f"dense path phase: {time.monotonic() - t_phase:.1f} s", flush=True)
+
     # -- results ----------------------------------------------------------
-    path_shapes = collections.Counter(fly_shapes) + collections.Counter(fr_shapes)
+    path_shapes = (collections.Counter(fly_shapes) + collections.Counter(fr_shapes)
+                   + collections.Counter(sqp_shapes))
     fly_long = long[4, FLYWHEEL_N + 1, 4]
 
     def long_entry(kind, replaces):
@@ -600,7 +741,10 @@ def main() -> None:
             "launches": probe_launches,
             "max_abs_err": probe["max_abs_diff"],
             "bitwise_equal": probe["bitwise_equal"],
+            "tf32_single_pass_max_err": probe["tf32_single_pass_max_err"],
             "ms": probe_ms,
+            "device_ms": probe_device_ms,
+            "targets_met": targets,
             "us_per_stage": None,  # no stages
             "plain_ms": probe_plain_ms,
             "bound_ms": probe_bound[0],

@@ -1,20 +1,31 @@
-"""Time two builds of the block-tridiagonal kernels (K1 factor, K2 solve)
-against each other on one CUDA card.
+"""Time two builds of a kernel source against each other on one CUDA
+card: the block-tridiagonal kernels (K1 factor, K2 solve) or the
+double-float probe (P).
 
 Run from the repository root:
 
     python3 kernel_ab.py --baseline PATH/TO/banded.cu [--out FILE]
+    python3 kernel_ab.py --dd-baseline DIR [--out FILE]
 
-Builds `sleipnir_tpu_torch/csrc/banded.cu` (the current design) and the
-baseline source, whose factor has the earlier C interface (six pointers,
-no scratch for the inertia pass), each with one `nvcc` for sm_90a,
-printing what ptxas reports. At each of the paths' kernel shapes it then:
+`--baseline` builds `sleipnir_tpu_torch/csrc/banded.cu` (the current
+design) and the baseline source, whose factor has the earlier C interface
+(six pointers, no scratch for the inertia pass), each with one `nvcc` for
+sm_90a, printing what ptxas reports. At each of the paths' kernel shapes
+it then:
 
   - holds both builds against each other and against the plain torch
     version: pivots equal, inertia equal, unrefined solutions within 1e-10
     relative, and whether the two factors and solutions agree bit for bit;
   - times both with CUDA events in turns, baseline, current, current,
     baseline, and reports each build's mean over its two turns.
+
+`--dd-baseline` takes a directory holding an earlier `dd_probe.cu` and
+the `ops/cuda_dd_probe.py` that drove it (e.g. both from `git show` of
+the parent commit), and compares a whole probe run and the one-hot
+product through each wrapper in the same turns: host-paced (50
+back-to-back calls) and on the device (one call after a sleep kernel),
+with `torch.matmul` beside them, after checking that both builds equal
+the plain version bit for bit.
 
 Prints the card's name and power limit first, one line per shape, and a
 JSON object as the last line (also written to --out, by default
@@ -25,6 +36,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import importlib.util
 import json
 import subprocess
 import sys
@@ -33,7 +45,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from chip_smoke import conditioned_system, cuda_ms, random_system, rel_diff
+from chip_smoke import conditioned_system, cuda_ms, device_ms, random_system, rel_diff
 
 #: (kind, B, K, w, system, reps per turn): K1 at the ladder's B=4 and, at
 #: the flywheel's horizon, also B=1; K2 at B=1, as the paths call them.
@@ -95,11 +107,75 @@ def baseline_solve(lib, fac, b):
     return x
 
 
+def dd_ab(baseline_dir: Path) -> tuple[list, bool]:
+    """The probe and its one-hot product through the baseline wrapper and
+    build, and the current ones, in turns. Returns (rows, ok)."""
+    from sleipnir_tpu_torch.ops import cuda_build, cuda_dd_probe
+    from sleipnir_tpu_torch.ops import dd as plain_dd
+    from sleipnir_tpu_torch.tools import dd_probe
+
+    spec = importlib.util.spec_from_file_location(
+        "baseline_cuda_dd_probe", baseline_dir / "cuda_dd_probe.py"
+    )
+    old = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(old)
+    old.SOURCE = cuda_build.Source(baseline_dir / "dd_probe.cu", cuda_dd_probe.SOURCE.flags)
+    logs = cuda_build.build([cuda_dd_probe.SOURCE, old.SOURCE], verbose=True)
+    for name, (_lib, log) in zip(("current", "baseline"), logs):
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {name}: {line.strip()}", flush=True)
+
+    x = dd_probe.probe_inputs(torch.device("cuda"))
+    plain = dd_probe.run_probe(x, dd_probe.plain_primitive, plain_dd.onehot_product)
+    old_out = dd_probe.run_probe(x, old.primitive, old.onehot_product)
+    new_out, _single = dd_probe.run_fused(x)
+    torch.cuda.synchronize()
+    ok = dd_probe.bitwise_equal(old_out, plain) and dd_probe.bitwise_equal(new_out, plain)
+    cases = {
+        "probe": {"baseline": lambda: dd_probe.run_probe(x, old.primitive, old.onehot_product),
+                  "current": lambda: cuda_dd_probe.probe(x["ah"], x["al"], x["bh"], x["bl"],
+                                                         x["P"], x["Mh"])},
+        "onehot_product": {"baseline": lambda: old.onehot_product(x["P"], x["Mh"]),
+                           "current": lambda: cuda_dd_probe.onehot_product(x["P"], x["Mh"])},
+    }
+    rows = []
+    for name, runs in cases.items():
+        turns = {"baseline": [], "current": []}
+        device = {"baseline": [], "current": []}
+        for who in ("baseline", "current", "current", "baseline"):
+            turns[who].append(cuda_ms(runs[who]))
+            device[who].append(device_ms(runs[who]))
+        row = {
+            "kind": name, "turns_ms": turns, "device_turns_ms": device,
+            "baseline_ms": sum(turns["baseline"]) / 2, "ms": sum(turns["current"]) / 2,
+            "baseline_device_ms": sum(device["baseline"]) / 2,
+            "device_ms": sum(device["current"]) / 2,
+            "matmul_ms": cuda_ms(lambda: torch.matmul(x["P"], x["Mh"])),
+            "matmul_device_ms": device_ms(lambda: torch.matmul(x["P"], x["Mh"])),
+            "bitwise_equal_to_plain": ok,
+        }
+        row["speedup"] = row["baseline_ms"] / row["ms"]
+        rows.append(row)
+        print(f"{name}: baseline {row['baseline_ms']:.4f} ms {turns['baseline']} (device "
+              f"{row['baseline_device_ms']:.4f}), current {row['ms']:.4f} ms {turns['current']} "
+              f"(device {row['device_ms']:.4f}), x{row['speedup']:.2f}; torch.matmul "
+              f"{row['matmul_ms']:.4f} ms (device {row['matmul_device_ms']:.4f}); both builds "
+              f"bitwise equal to the plain version: {ok}", flush=True)
+    if not ok:
+        print("FAIL: a probe build differs from the plain version", file=sys.stderr)
+    return rows, ok
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--baseline", type=Path, required=True, help="baseline banded.cu")
+    ap.add_argument("--baseline", type=Path, help="baseline banded.cu")
+    ap.add_argument("--dd-baseline", type=Path,
+                    help="directory with a baseline dd_probe.cu and cuda_dd_probe.py")
     ap.add_argument("--out", type=Path, default=Path("build/kernel_ab.json"))
     args = ap.parse_args(argv)
+    if (args.baseline is None) == (args.dd_baseline is None):
+        ap.error("give exactly one of --baseline and --dd-baseline")
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
@@ -107,6 +183,13 @@ def main(argv=None) -> int:
                          capture_output=True, text=True, check=False)
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed"
     print(card, flush=True)
+    if args.dd_baseline is not None:
+        rows, ok = dd_ab(args.dd_baseline)
+        result = {"card": card, "dd_probe": rows, "ok": ok}
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(json.dumps(result, indent=1))
+        print(json.dumps(result), flush=True)
+        return 0 if ok else 1
 
     from sleipnir_tpu_torch.ops import block_tridiag as plain
     from sleipnir_tpu_torch.ops import cuda_banded, cuda_build

@@ -6,6 +6,8 @@ Run from the repository root on a machine with a CUDA card:
     python3 phase_probe.py --problem cart_pole --N 1000
     python3 phase_probe.py --problem flywheel --N 5000
     python3 phase_probe.py --problem restoration --N 2000
+    python3 phase_probe.py --problem flywheel_sqp --N 5000 --warm 1
+    python3 phase_probe.py --problem flywheel_dense --N 1000
     python3 phase_probe.py --device cpu --N 10 --timed 5 --profiled 3
 
 One solve through `Problem.solve`, run to its end, with the parent's
@@ -21,14 +23,18 @@ iterations in three windows:
 A window that the solve does not reach is reported as such. Phases:
 `BandedBackend.eval_derivs` (colored derivative probes), `factor`
 (assembly, equilibration, the K1 kernel on the regularization ladder,
-inertia), `solve_refined` (three K2 solves), the compiled problem's f,
+inertia), `solve_refined` (three K2 solves), the same three of
+`DenseBackend` (dense derivatives, the blocked LDLᵀ of the ladder, three
+triangular-solve pairs), the compiled problem's f,
 c_e and c_i when called outside them (the line search), and `restore`
 (feasibility restoration, whatever it runs inside). Iteration counts
 include the restoration solver's iterations, as the JAX package counts
 them. The whole solve's wall time, its exit status, and the restoration
 entries with their time and iterations are reported as well.
 
-`--problem restoration` runs feasibility restoration alone, from the
+`flywheel_sqp` is the flywheel without input bounds (SQP on the banded
+backend), `flywheel_dense` its plain-Problem form with bounds (the dense
+interior-point method). `--problem restoration` runs feasibility restoration alone, from the
 strongly infeasible cart-pole iterate that `chip_smoke.py` uses, with
 every restoration iteration in the timed window (no profiled window).
 """
@@ -48,15 +54,22 @@ from torch.autograd import DeviceType
 import sleipnir_tpu_torch.optimization.problem as problem_module
 from sleipnir_tpu_torch.autodiff.vectorize import BlockCompiler
 from sleipnir_tpu_torch.models.cart_pole import cart_pole_problem
-from sleipnir_tpu_torch.models.flywheel import flywheel_problem
+from sleipnir_tpu_torch.models.flywheel import flywheel_problem, flywheel_unbounded_problem
+from sleipnir_tpu_torch.optimization.solver.kkt_backend import DenseBackend
 from sleipnir_tpu_torch.optimization.solver.kkt_banded import BandedBackend
 
 PHASES = {
     BandedBackend: ("eval_derivs", "factor", "solve_refined"),
+    DenseBackend: ("eval_derivs", "factor", "solve_refined"),
     BlockCompiler: ("f", "c_e", "c_i"),
     problem_module: ("restore",),
 }
-PROBLEMS = {"cart_pole": cart_pole_problem, "flywheel": flywheel_problem}
+PROBLEMS = {
+    "cart_pole": cart_pole_problem,
+    "flywheel": flywheel_problem,
+    "flywheel_sqp": flywheel_unbounded_problem,
+    "flywheel_dense": functools.partial(flywheel_problem, fast=False),
+}
 
 
 class Probe:

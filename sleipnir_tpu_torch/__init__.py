@@ -1,16 +1,18 @@
 """sleipnir_tpu_torch — the sleipnir_tpu solver ported to PyTorch and CUDA.
 
 The second package beside `sleipnir_tpu` (JAX, the reference): the same
-Problem DSL and OCP layer, an interior-point solver driven from the host,
-and a banded KKT backend whose block-tridiagonal factor and solve run in
-CUDA C++ kernels written for Hopper (`ops/cuda_banded.py`,
-`csrc/banded.cu`). Everything on the solve path is float64, passed
-explicitly; importing the package changes no global torch setting. The
-solve device comes from `Options(device=...)`, "cuda" by default.
+Problem DSL and OCP layer, interior-point, SQP and Newton solvers driven
+from the host, a dense KKT backend, and a banded one whose
+block-tridiagonal factor and solve run in CUDA C++ kernels written for
+Hopper (`ops/cuda_banded.py`, `csrc/banded.cu`). Everything on the solve
+path is float64, passed explicitly; importing the package changes no
+global torch setting. The solve device comes from `Options(device=...)`,
+"cuda" by default.
 
-The port covers the interior-point path on OCP stage structure, with
-banded feasibility restoration (the cart-pole swing-up and the flywheel
-at their full sizes); ROADMAP.md lists what is still to port.
+The port covers those solvers on OCP stage structure and without it,
+with banded and dense feasibility restoration (the cart-pole swing-up
+and both flywheel forms at their full sizes); ROADMAP.md lists what is
+still to port.
 """
 
 from sleipnir_tpu_torch.autodiff import (

@@ -13,10 +13,11 @@ import torch
 
 from sleipnir_tpu_torch.optimization.solver.funcs import ScalingArrays
 from sleipnir_tpu_torch.optimization.solver.interior_point import IPMState
+from sleipnir_tpu_torch.optimization.solver.kkt_backend import DenseDerivs
 from sleipnir_tpu_torch.optimization.solver.kkt_banded import BandedDerivs
 from sleipnir_tpu_torch.optimization.solver.util.filter import FilterState
 
-#: IPMState fields the port keeps as host integers.
+#: Solver state fields the port keeps as host integers.
 _HOST_INT_FIELDS = ("full_step_rejected_counter", "iterations", "status", "infeas_streak")
 
 #: JAX BandedDerivs fields that hold the arrowhead border, which the port
@@ -45,19 +46,27 @@ def ipm_state_from_numpy(fields: Mapping, device) -> IPMState:
     """The port's IPMState from the fields of a JAX `IPMState` turned into
     numpy: a mapping of field name to array, where `derivs`, `filt` and
     `scaling` are mappings of their own fields."""
+    return state_from_numpy(IPMState, fields, device)
+
+
+def state_from_numpy(state_cls, fields: Mapping, device):
+    """A port solver state (`IPMState`, `sqp.SQPState`,
+    `newton.NewtonState`) from the fields of the JAX package's state of
+    the same name turned into numpy, as `ipm_state_from_numpy` takes them.
+    The derivatives are dense (`DenseDerivs`) when they hold `H`, else
+    banded."""
     derivs = fields["derivs"]
     for name in _BORDER_FIELDS:
         if name in derivs and np.asarray(derivs[name]).size:
             raise NotImplementedError(
                 "the arrowhead border is not ported yet (ROADMAP queue 1 item 11)"
             )
+    derivs_cls = DenseDerivs if "H" in derivs else BandedDerivs
     values = {}
-    for name in IPMState._fields:
+    for name in state_cls._fields:
         a = fields[name]
         if name == "derivs":
-            values[name] = BandedDerivs(
-                *(_tensor(a[k], device) for k in BandedDerivs._fields)
-            )
+            values[name] = derivs_cls(*(_tensor(a[k], device) for k in derivs_cls._fields))
         elif name == "filt":
             values[name] = FilterState(*(_tensor(a[k], device) for k in FilterState._fields))
         elif name == "scaling":
@@ -66,4 +75,4 @@ def ipm_state_from_numpy(fields: Mapping, device) -> IPMState:
             values[name] = int(np.asarray(a))
         else:
             values[name] = _tensor(a, device)
-    return IPMState(**values)
+    return state_cls(**values)

@@ -22,48 +22,80 @@ from sleipnir_tpu_torch.optimization.ocp import (
     TimestepMethod,
     TranscriptionMethod,
 )
+from sleipnir_tpu_torch.optimization.problem import Problem
 
 
 def flywheel_problem(N: int = 1000, total_time: float = 5.0, fast: bool = True):
     """Build the flywheel tracking problem. Returns (problem, X, U).
 
     Linear dynamics, quadratic cost and linear bounds: the interior-point
-    method, as in the reference. Only the OCP form (`fast=True`) is
-    ported; the plain-Problem form needs the dense KKT backend.
+    method, as in the reference. `fast=True` builds the OCP form (banded
+    KKT backend); `fast=False` the plain Problem of N loop-built dynamics
+    constraints, which solves on the dense backend.
     """
-    if not fast:
-        raise NotImplementedError(
-            "the plain-Problem flywheel needs the dense KKT backend, which is "
-            "not ported yet (ROADMAP queue 1 item 10)"
-        )
     dt = total_time / N
     A = math.exp(-dt)
     B = 1.0 - math.exp(-dt)
     r = 10.0
 
-    # Discrete linear dynamics as one vmapped block, solved with the
-    # block-tridiagonal KKT backend.
+    if fast:
+        # Discrete linear dynamics as one vmapped block, solved with the
+        # block-tridiagonal KKT backend.
+        def discrete(x, u):
+            return A * x + B * u
+
+        ocp = OCP(
+            1,
+            1,
+            dt,
+            N,
+            discrete,
+            DynamicsType.DISCRETE,
+            TimestepMethod.FIXED,
+            TranscriptionMethod.DIRECT_TRANSCRIPTION,
+        )
+        X = ocp.X()
+        U = ocp.U()
+        ocp.constrain_initial_state(0.0)
+        ocp.subject_to(U >= -12.0)
+        ocp.subject_to(U <= 12.0)
+        err = r - X
+        ocp.minimize((err**2).sum())
+        return ocp, X, U
+
+    problem = Problem()
+    X = problem.decision_variable(1, N + 1)
+    U = problem.decision_variable(1, N)
+    for k in range(N):
+        problem.subject_to(X[0, k + 1] == A * X[0, k] + B * U[0, k])
+    problem.subject_to(X[0, 0] == 0.0)
+    problem.subject_to(U >= -12.0)
+    problem.subject_to(U <= 12.0)
+    # Minimize the tracking error Σ (r − xₖ)²
+    err = r - X
+    problem.minimize((err**2).sum())
+    return problem, X, U
+
+
+def flywheel_unbounded_problem(N: int = 1000, total_time: float = 5.0):
+    """The flywheel OCP without input bounds (the JAX package's
+    tests/optimization/test_sqp_banded.py:18-38): equality constraints
+    only, so SQP on the banded KKT backend. Returns (ocp, X, U)."""
+    dt = total_time / N
+    A = math.exp(-dt)
+    B = 1.0 - math.exp(-dt)
+
     def discrete(x, u):
         return A * x + B * u
 
     ocp = OCP(
-        1,
-        1,
-        dt,
-        N,
-        discrete,
-        DynamicsType.DISCRETE,
-        TimestepMethod.FIXED,
+        1, 1, dt, N, discrete, DynamicsType.DISCRETE, TimestepMethod.FIXED,
         TranscriptionMethod.DIRECT_TRANSCRIPTION,
     )
-    X = ocp.X()
-    U = ocp.U()
     ocp.constrain_initial_state(0.0)
-    ocp.subject_to(U >= -12.0)
-    ocp.subject_to(U <= 12.0)
-    err = r - X
+    err = 10.0 - ocp.X()
     ocp.minimize((err**2).sum())
-    return ocp, X, U
+    return ocp, ocp.X(), ocp.U()
 
 
 def oracle_failures(Xv, Uv, total_time: float = 5.0) -> list[str]:

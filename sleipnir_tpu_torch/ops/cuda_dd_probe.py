@@ -1,16 +1,20 @@
-"""Hopper kernels of the double-float precision probe.
+"""Hopper kernel of the double-float precision probe.
 
-Replaces the TPU probe `tools/pallas_dd_probe.py` (`run_kernel`): each
-primitive of `ops/dd.py` (two_sum, two_prod, add2, mul2, div2) runs in an
-elementwise kernel of `csrc/dd_probe.cu`, and a one-hot float32 matrix
-product runs in a kernel of its own. The source is built with
-`-fmad=false`, so each kernel does the same IEEE float32 operations in
-the same order as its plain version in `ops/dd.py` and agrees with it bit
-for bit.
+Replaces the TPU probe `tools/pallas_dd_probe.py` (`run_kernel`). One
+kernel of `csrc/dd_probe.cu` computes a whole probe run in one launch
+(`probe`): each primitive of `ops/dd.py` (two_sum, two_prod, add2, mul2,
+div2) elementwise, and a one-hot float32 matrix product on the tensor
+cores, exact through a three-way TF32 split and once more in a single
+TF32 pass. `primitive` and `onehot_product` are thin calls that launch
+the same kernel for one part. The source is built with `-fmad=false`, so
+each primitive does the same IEEE float32 operations in the same order as
+its plain version in `ops/dd.py` and agrees with it bit for bit.
 
-A wrapper given CUDA tensors launches its kernel or raises; given CPU
+A wrapper given CUDA tensors launches the kernel or raises; given CPU
 tensors it runs the plain version. `LAUNCHES` counts kernel launches
-only.
+only. The host path is kept to what a launch needs: the ctypes function
+is resolved once, each call makes one allocation, and the device
+context is entered only when the tensors are not on the current card.
 """
 
 from __future__ import annotations
@@ -28,10 +32,17 @@ SOURCE = cuda_build.Source(
     cuda_build.CSRC / "dd_probe.cu", cuda_build.BASE_FLAGS + ("-fmad=false",)
 )
 
-#: Primitive name -> (kernel op code, number of float32 inputs).
+#: Primitive name -> (kernel op, number of float32 inputs), in the
+#: kernel's op order; op 5 is the one-hot product.
 PRIMITIVES = {"two_sum": (0, 2), "two_prod": (1, 2), "add2": (2, 4), "mul2": (3, 4), "div2": (4, 4)}
+ONEHOT = 5
+#: The product's matrices are padded to the tensor-core tile's 16.
+MAX_WIDTH = 16
 
-_lib = None
+_kernel = None
+_onehot = None
+_error_string = None
+_raw_stream = None
 
 
 def reset_counters() -> None:
@@ -39,46 +50,72 @@ def reset_counters() -> None:
     LAUNCHES = 0
 
 
-def _library():
-    global _lib
-    if _lib is None:
+def _bind():
+    """The C entry points (whole probe, one-hot product alone), built and
+    resolved at the first call."""
+    global _kernel, _onehot, _error_string, _raw_stream
+    if _kernel is None:
         [(path, _log)] = cuda_build.build([SOURCE])
         lib = ctypes.CDLL(str(path))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.sleipnir_dd_elementwise.argtypes = [i32] + [ptr] * 6 + [i32, ptr]
-        lib.sleipnir_dd_elementwise.restype = i32
+        fn = lib.sleipnir_dd_probe
+        fn.argtypes = [ptr] * 4 + [i32] + [ptr] * 2 + [i32] * 4 + [ptr] * 2
+        fn.restype = i32
         lib.sleipnir_dd_onehot.argtypes = [ptr] * 3 + [i32, ptr]
         lib.sleipnir_dd_onehot.restype = i32
+        _onehot = lib.sleipnir_dd_onehot
         lib.sleipnir_dd_error_string.argtypes = [i32]
         lib.sleipnir_dd_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+        _error_string = lib.sleipnir_dd_error_string
+        # The current stream of a device index as an integer, without the
+        # Stream object `torch.cuda.current_stream` builds (the call
+        # PyTorch's own generated kernels make before each launch).
+        _raw_stream = torch._C._cuda_getCurrentRawStream
+        _kernel = fn
+    return _kernel, _onehot
 
 
-def _check_inputs(tensors, name: str) -> torch.device:
+def _check(tensors, name: str, shape) -> int:
+    """The device index every tensor lies on (-1 for the CPU); raises on
+    what the kernel cannot take."""
     device = tensors[0].device
     for t in tensors:
-        if t.device != device:
-            raise ValueError(f"{name}: every input must be on {device}, got {t.device}")
-        if t.dtype != torch.float32:
+        if t.dtype is not torch.float32:
             raise ValueError(f"{name}: inputs must be float32, got {t.dtype}")
-        if t.shape != tensors[0].shape:
+        if t.shape != shape:
             raise ValueError(f"{name}: inputs must share one shape")
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
-    return device
+        if t.device != device:
+            raise ValueError(f"{name}: every input must be on {device}, got {t.device}")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: inputs must be CPU or CUDA tensors, got {device}")
+    return device.index if device.type == "cuda" else -1
 
 
-def _launched(lib, err: int, what: str) -> None:
+def _check_onehot(P: torch.Tensor, X: torch.Tensor) -> int:
+    w = P.shape[0] if P.dim() == 2 else -1
+    if P.dim() != 2 or P.shape[1] != w or w > MAX_WIDTH:
+        raise ValueError(
+            f"onehot_product takes (w, w) matrices with w <= {MAX_WIDTH}, got {tuple(P.shape)}"
+        )
+    return w
+
+
+def _launch(fn, index: int, *args) -> None:
+    """One launch through the C entry point `fn` on card `index` with
+    `args` and the card's current stream."""
+    if index == torch.cuda.current_device():
+        err = fn(*args, _raw_stream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, _raw_stream(index))
     if err != 0:
-        msg = lib.sleipnir_dd_error_string(err).decode()
-        raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
+        raise RuntimeError(
+            f"dd probe launch failed: CUDA error {err} ({_error_string(err).decode()})"
+        )
     global LAUNCHES
     LAUNCHES += 1
-
-
-def _ptr(t) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
 
 
 def primitive(name: str, *inputs: torch.Tensor):
@@ -88,41 +125,58 @@ def primitive(name: str, *inputs: torch.Tensor):
     op, arity = PRIMITIVES[name]
     if len(inputs) != arity:
         raise ValueError(f"{name} takes {arity} tensors, got {len(inputs)}")
-    device = _check_inputs(inputs, name)
-    if device.type == "cpu":
+    a = inputs[0]
+    index = _check(inputs, name, a.shape)
+    if index < 0:
         return getattr(dd, name)(*inputs)
-    if device.type != "cuda":
-        raise ValueError(f"{name}: inputs must be CPU or CUDA tensors, got {device}")
-    lib = _library()
-    hi = torch.empty_like(inputs[0])
-    lo = torch.empty_like(inputs[0])
-    args = list(inputs) + [None] * (4 - arity)
-    with torch.cuda.device(device):
-        err = lib.sleipnir_dd_elementwise(
-            op, *(_ptr(t) for t in args), _ptr(hi), _ptr(lo), inputs[0].numel(),
-            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
-        )
-    _launched(lib, err, name)
-    return hi, lo
+    fn, _ = _bind()
+    out = a.new_empty((2, *a.shape))
+    ptrs = [t.data_ptr() for t in inputs]
+    xs = (ptrs[0], None, ptrs[1], None) if arity == 2 else ptrs
+    _launch(fn, index, *xs, a.numel(), None, None, 0, op, 1, 0, out.data_ptr())
+    return out.unbind(0)
 
 
 def onehot_product(P: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
-    """P @ X for square float32 matrices of one width w (w·w ≤ 1024),
-    summed in the inner index's order."""
-    device = _check_inputs((P, X), "onehot_product")
-    w = P.shape[0]
-    if P.dim() != 2 or P.shape[1] != w or w * w > 1024:
-        raise ValueError(f"onehot_product takes (w, w) matrices with w*w <= 1024, got {tuple(P.shape)}")
-    if device.type == "cpu":
+    """P @ X for a one-hot P and X, (w, w) float32 with w ≤ 16, exact: on
+    the card the tensor cores' three-pass TF32 product."""
+    w = _check_onehot(P, X)
+    index = _check((P, X), "onehot_product", P.shape)
+    if index < 0:
         return dd.onehot_product(P, X)
-    if device.type != "cuda":
-        raise ValueError(f"onehot_product: inputs must be CPU or CUDA tensors, got {device}")
-    lib = _library()
+    _, fn = _bind()
     out = torch.empty_like(P)
-    with torch.cuda.device(device):
-        err = lib.sleipnir_dd_onehot(
-            _ptr(P), _ptr(X), _ptr(out), w,
-            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
-        )
-    _launched(lib, err, "onehot_product")
+    _launch(fn, index, P.data_ptr(), X.data_ptr(), out.data_ptr(), w)
     return out
+
+
+def probe(ah, al, bh, bl, P, X):
+    """A whole probe run in one launch: two_sum and two_prod of (ah, bh),
+    add2, mul2 and div2 of (ah, al, bh, bl), and the one-hot product P X.
+
+    Returns (pairs, products), views of one output tensor: pairs
+    (5, 2, *shape) holds each primitive's (hi, lo) in `PRIMITIVES`'
+    order; products (2, w, w) holds P X and P X in one TF32 pass (X
+    truncated to 11 bits), the precision of the card's matrix unit on a
+    plain float32 product. On CPU tensors both come from the plain
+    versions."""
+    w = _check_onehot(P, X)
+    shape = ah.shape
+    index = _check((ah, al, bh, bl), "probe", shape)
+    if _check((P, X), "probe", P.shape) != index:
+        raise ValueError(f"probe: every input must be on {ah.device}")
+    if index < 0:
+        pairs = torch.stack([
+            torch.stack(dd.two_sum(ah, bh)), torch.stack(dd.two_prod(ah, bh)),
+            *(torch.stack(getattr(dd, name)(ah, al, bh, bl)) for name in ("add2", "mul2", "div2")),
+        ])
+        products = torch.stack([dd.onehot_product(P, X), dd.onehot_product(P, dd.tf32_truncate(X))])
+        return pairs, products
+    fn, _ = _bind()
+    n = ah.numel()
+    out = ah.new_empty(10 * n + 2 * w * w)
+    _launch(fn, index, ah.data_ptr(), al.data_ptr(), bh.data_ptr(), bl.data_ptr(), n,
+            P.data_ptr(), X.data_ptr(), w, 0, ONEHOT + 1, 1, out.data_ptr())
+    pairs = out.as_strided((5, 2, *shape), (2 * n, n, *ah.stride()))
+    products = out.as_strided((2, w, w), (w * w, w, 1), 10 * n)
+    return pairs, products

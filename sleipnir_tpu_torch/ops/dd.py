@@ -101,6 +101,30 @@ def to_f64(hi, lo):
     return hi.to(torch.float64) + lo.to(torch.float64)
 
 
+def tf32_truncate(x):
+    """float32 x truncated to its 11 leading significant bits, the
+    precision of a TF32 operand: the low 13 bits of a normal number's
+    field cleared, or of a subnormal's every bit 11 or more below its
+    leading one (the probe kernel's `trunc11`)."""
+    bits = x.view(torch.int32)
+    field = bits & 0x7FFFFF
+    # frexp of a positive integer below 2^23 is exact: lead = exponent - 1
+    lead = torch.frexp(field.to(torch.float32)).exponent - 1
+    shift = torch.clamp(lead - 10, min=0)
+    subnormal_low = torch.bitwise_left_shift(torch.ones_like(bits), shift) - 1
+    clear = torch.where((bits & 0x7F800000) != 0, 0x1FFF, subnormal_low)
+    return (bits & ~clear).view(torch.float32)
+
+
+def tf32_split(x):
+    """x = x1 + x2 + x3 with each part of at most 11 significant bits: the
+    three TF32 passes of the probe kernel's exact one-hot product."""
+    x1 = tf32_truncate(x)
+    r = x - x1
+    x2 = tf32_truncate(r)
+    return x1, x2, r - x2
+
+
 def onehot_product(P, X):
     """P @ X for (w, w) float32 matrices, summed over the inner index in
     order, one multiply and one add at a time (the probe kernel's order)."""

@@ -1,5 +1,5 @@
-"""Optimization layer: Problem DSL, the interior-point solver and the OCP
-layer (port of `sleipnir_tpu.optimization`)."""
+"""Optimization layer: Problem DSL, the interior-point, SQP and Newton
+solvers and the OCP layer (port of `sleipnir_tpu.optimization`)."""
 
 from sleipnir_tpu_torch.autodiff import bounds
 from sleipnir_tpu_torch.autodiff.variable import (

@@ -11,8 +11,9 @@ KKT backend.
 
 Not ported yet, and raising NotImplementedError: direct collocation,
 single shooting, the VARIABLE and VARIABLE_SINGLE timestep methods and
-dynamics that only run on the DSL (ROADMAP queue 1 item 11), and any
-problem that does not fit the stage band (the dense backend, item 10).
+dynamics that only run on the DSL (ROADMAP queue 1 item 11). A problem
+that does not fit the stage band solves on the dense backend, with a
+warning.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from __future__ import annotations
 import datetime
 import enum
 import inspect
+import warnings
 from typing import Callable
 
 import numpy as np
@@ -274,37 +276,45 @@ class OCP(Problem):
     # -- banded KKT structure ----------------------------------------------
 
     def _make_kkt_backend(self, comp, device, syncs):
-        """The block-tridiagonal KKT backend; raises when the problem's
-        constraints do not fit the stage band (the dense path, with which
-        the JAX package falls back, is not ported yet)."""
+        """The block-tridiagonal KKT backend when the problem's constraints
+        all fit the stage band; None (the dense backend) otherwise."""
+        structure = self._stage_structure(comp)
+        if structure is None:
+            return None
         return BandedBackend(
-            self._stage_structure(comp),
+            structure,
             comp["f"], comp["c_e"], comp["c_i"],
             comp["n"], comp["me"], comp["mi"],
             device, syncs,
         )
 
     @staticmethod
-    def _off_band(reason: str):
-        return NotImplementedError(
+    def _dense_fallback(reason: str) -> None:
+        """The O(N) banded path is a performance contract at long horizons;
+        falling back to the dense O(N³) factorization is announced, as in
+        the JAX package."""
+        warnings.warn(
             f"OCP does not fit the block-tridiagonal KKT structure ({reason}); "
-            "the dense backend is not ported yet (ROADMAP queue 1 item 10)"
+            "using the dense factorization, which does not scale with the "
+            "horizon length",
+            stacklevel=4,
         )
 
-    def _stage_structure(self, comp) -> StageStructure:
-        """The stage of every variable and constraint row."""
+    def _stage_structure(self, comp) -> StageStructure | None:
+        """The stage of every variable and constraint row, or None (with a
+        warning) when the problem does not fit the band."""
         ns, ni, N = self._num_states, self._num_inputs, self._num_steps
         K = N + 1
         m = ns + ni
         all_ids = comp["all_ids"]
         if all_ids.shape[0] != K * m:
-            raise self._off_band("extra decision variables outside the X/U stages")
+            return self._dense_fallback("extra decision variables outside the X/U stages")
         if not isinstance(self._X.expr, DecVarExpr) or not isinstance(self._U.expr, DecVarExpr):
-            raise self._off_band("X/U were overwritten with expressions")
+            return self._dense_fallback("X/U were overwritten with expressions")
         x_ids = self._X.expr.ids  # (ns, K)
         u_ids = self._U.expr.ids  # (ni, K)
         if x_ids.shape != (ns, K) or u_ids.shape != (ni, K):
-            raise self._off_band("X/U shape mismatch")
+            return self._dense_fallback("X/U shape mismatch")
 
         stage_of_id = {}
         for k in range(K):
@@ -342,9 +352,9 @@ class OCP(Problem):
         ce_stage = classify(self._equality)
         ci_stage = classify(self._inequality)
         if ce_stage is None or ci_stage is None:
-            raise self._off_band("a constraint row couples non-adjacent stages")
+            return self._dense_fallback("a constraint row couples non-adjacent stages")
         if ce_stage.shape[0] != comp["me"] or ci_stage.shape[0] != comp["mi"]:
-            raise self._off_band("constraint row count mismatch")
+            return self._dense_fallback("constraint row count mismatch")
 
         def slots(stages):
             counters = np.zeros(K, dtype=np.int64)
@@ -357,7 +367,7 @@ class OCP(Problem):
         ce_slot, p = slots(ce_stage)
         ci_slot, q = slots(ci_stage)
         if p > 4 * m or q > 8 * m:
-            raise self._off_band("pathologically uneven per-stage constraint counts")
+            return self._dense_fallback("pathologically uneven per-stage constraint counts")
 
         return StageStructure(
             num_stages=K,

@@ -6,10 +6,12 @@ by linearity and dispatches (reference problem.hpp:303-669). The cost and
 constraints are compiled once into torch functions of the flat decision
 vector, and derivatives come from `torch.func`.
 
-This port covers the interior-point branch on the banded KKT backend,
-with banded feasibility restoration. The Newton and SQP branches, the
-dense backend, diagnostics printing and sparsity recording raise
-NotImplementedError naming their ROADMAP item.
+Problems with inequality constraints run the interior-point method,
+equality-only problems SQP, unconstrained ones Newton's method, each on
+the banded KKT backend where an OCP's stage structure allows it and on
+the dense one otherwise, with feasibility restoration of the same kind.
+Diagnostics printing and sparsity recording raise NotImplementedError
+naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from typing import Callable
 
 import numpy as np
 import torch
-from torch.func import grad
+from torch.func import grad, hessian, jacfwd
 
 from sleipnir_tpu_torch.autodiff import expression as ex
 from sleipnir_tpu_torch.autodiff.expression import ConstExpr, Expr
@@ -32,15 +34,25 @@ from sleipnir_tpu_torch.autodiff.variable import (
     VariableMatrix,
 )
 from sleipnir_tpu_torch.optimization.solver.exit_status import ExitStatus
-from sleipnir_tpu_torch.optimization.solver.funcs import IPMFunctions, ScalingArrays
+from sleipnir_tpu_torch.optimization.solver.funcs import (
+    IPMFunctions,
+    NewtonFunctions,
+    ScalingArrays,
+    SQPFunctions,
+)
 from sleipnir_tpu_torch.optimization.solver.interior_point import make_interior_point
 from sleipnir_tpu_torch.optimization.solver.iteration_info import IterationInfo
+from sleipnir_tpu_torch.optimization.solver.kkt_backend import DenseBackend
+from sleipnir_tpu_torch.optimization.solver.kkt_banded import BandedBackend
+from sleipnir_tpu_torch.optimization.solver.newton import make_newton
 from sleipnir_tpu_torch.optimization.solver.options import Options
 from sleipnir_tpu_torch.optimization.solver.solve_driver import run_solver
+from sleipnir_tpu_torch.optimization.solver.sqp import make_sqp
 from sleipnir_tpu_torch.optimization.solver.util.feasibility_restoration import (
     restore,
 )
 from sleipnir_tpu_torch.optimization.solver.util.bounds import (
+    get_bounds,
     get_bounds_rows,
     project_onto_bounds,
 )
@@ -267,39 +279,211 @@ class Problem:
 
         start_time = time.monotonic()
         comp = self._compile()
-        if comp["mi"] == 0:
-            raise NotImplementedError(
-                "problems without inequality constraints run the Newton or "
-                "SQP solver, which is not ported yet (ROADMAP queue 1 item 10)"
-            )
         all_ids = comp["all_ids"]
         x0 = ex._registry.get(all_ids).astype(np.float64)
         params = comp["compiled"].gather_params()
-        status, final_x = self._solve_ipm(comp, x0, params, options, start_time)
+        if comp["mi"] > 0:
+            status, final_x = self._solve_ipm(comp, x0, params, options, start_time)
+        elif comp["me"] > 0:
+            status, final_x = self._solve_sqp(comp, x0, params, options, start_time)
+        else:
+            status, final_x = self._solve_newton(comp, x0, params, options, start_time)
 
         # Write the solution back into the decision variables
         # (reference problem.hpp:676).
         ex._registry.set(all_ids, np.asarray(final_x, dtype=np.float64))
         return status
 
-    def _prepare_ipm(self, comp: dict, options: Options, device: torch.device):
-        key = (
-            "ipm", self._structure_version, options.tolerance,
+    # -- derivative construction -------------------------------------------
+
+    @staticmethod
+    def _derivatives(comp: dict):
+        """Dense derivative functions of the raw problem functions: g, the
+        cost Hessian, Aₑ, Aᵢ and the constraint part of the Lagrangian
+        Hessian, H_c(x, y, z) = ∇²(−yᵀcₑ − zᵀcᵢ)."""
+        f_raw, ce_raw, ci_raw = comp["f"], comp["c_e"], comp["c_i"]
+
+        def lag_c(x, y, z, params):
+            out = torch.zeros((), dtype=x.dtype, device=x.device)
+            if comp["me"] > 0:
+                out = out - y @ ce_raw(x, params)
+            if comp["mi"] > 0:
+                out = out - z @ ci_raw(x, params)
+            return out
+
+        return grad(f_raw), hessian(f_raw), jacfwd(ce_raw), jacfwd(ci_raw), hessian(lag_c)
+
+    def _cache_key(self, kind: str, options: Options, device: torch.device):
+        return (
+            kind, self._structure_version, options.tolerance,
             options.max_iterations, options.feasible_ipm, str(device),
         )
+
+    @staticmethod
+    def _unit_scaling(comp: dict, device: torch.device) -> ScalingArrays:
+        """Scaling arrays of ones: the unscaled callbacks."""
+        return ScalingArrays(
+            *(torch.ones(size, dtype=torch.float64, device=device)
+              for size in ((), comp["me"], comp["mi"]))
+        )
+
+    def _backend(self, comp: dict, device: torch.device, me: int, mi: int):
+        """The stage-banded backend where the problem has OCP structure,
+        else the dense one."""
+        syncs = HostSyncs()
+        backend = self._make_kkt_backend(comp, device, syncs)
+        if backend is None:
+            backend = DenseBackend(comp["n"], me, mi, device, syncs)
+        return backend
+
+    def _record(self, state, backend, syncs_before: int) -> tuple:
+        self._last_state = state
+        self.last_solve_stats = SolveStats(state.iterations, backend.syncs.count - syncs_before)
+        return ExitStatus(state.status), state.x.cpu().numpy()
+
+    # -- Newton (no constraints) -------------------------------------------
+
+    def _solve_newton(self, comp, x0, params, options, start_time):
+        """(reference problem.hpp:335-402)"""
+        device = resolve_device(options.device)
+        key = self._cache_key("newton", options, device)
+        cached = self._solver_cache.get(key)
+        if cached is None:
+            comp["compiled"].prepare(device)
+            f_raw = comp["f"]
+            g_fn, H_f_fn = grad(f_raw), hessian(f_raw)
+            funcs = NewtonFunctions(
+                num_decision_variables=comp["n"],
+                f=lambda x, p, sc: sc.f * f_raw(x, p),
+                g=lambda x, p, sc: sc.f * g_fn(x, p),
+                H=lambda x, p, sc: sc.f * H_f_fn(x, p),
+            )
+            backend = self._backend(comp, device, 0, 0)
+            init, step = make_newton(funcs, options, backend=backend)
+            cached = self._solver_cache[key] = (init, step, g_fn, backend)
+        init, step, g_fn, backend = cached
+        syncs_before = backend.syncs.count
+
+        def on_device(a):
+            return torch.as_tensor(a, dtype=torch.float64, device=device)
+
+        # Scaling at the starting point (reference problem.hpp:379-382)
+        scaling = ProblemScaling.for_newton(g_fn(on_device(x0), on_device(params)).cpu().numpy())
+        sc = ScalingArrays(f=scaling.f, c_e=np.zeros(0), c_i=np.zeros(0))
+        state = run_solver(
+            init(x0, params, sc), step, options,
+            callbacks=self._persistent_callbacks + self._callbacks,
+            info_fn=lambda st: self._newton_info(st, backend),
+            start_time=start_time,
+        )
+        return self._record(state, backend, syncs_before)
+
+    @staticmethod
+    def _newton_info(state, backend) -> IterationInfo:
+        empty = np.zeros(0)
+        H, _A_e, _A_i = backend.dense(state.derivs)
+        n = state.x.shape[0]
+        return IterationInfo(
+            iteration=state.iterations, x=state.x.cpu().numpy(), s=empty, y=empty, z=empty,
+            g=state.g.cpu().numpy(), H=H, A_e=np.zeros((0, n)), A_i=np.zeros((0, n)),
+        )
+
+    # -- SQP (equality constraints only) -------------------------------------
+
+    def _prepare_sqp(self, comp: dict, options: Options, device: torch.device):
+        key = self._cache_key("sqp", options, device)
+        cached = self._solver_cache.get(key)
+        if cached is not None:
+            return cached
+        comp["compiled"].prepare(device)
+        f_raw, ce_raw = comp["f"], comp["c_e"]
+        g_fn, H_f_fn, A_e_fn, _A_i_fn, H_c_fn = self._derivatives(comp)
+        empty = torch.zeros(0, dtype=torch.float64, device=device)
+        funcs = SQPFunctions(
+            num_decision_variables=comp["n"],
+            num_equality_constraints=comp["me"],
+            f=lambda x, p, sc: sc.f * f_raw(x, p),
+            g=lambda x, p, sc: sc.f * g_fn(x, p),
+            H=lambda x, y, p, sc: sc.f * H_f_fn(x, p) + H_c_fn(x, sc.c_e * y, empty, p),
+            H_c=lambda x, y, p, sc: H_c_fn(x, sc.c_e * y, empty, p),
+            c_e=lambda x, p, sc: sc.c_e * ce_raw(x, p),
+            A_e=lambda x, p, sc: sc.c_e[:, None] * A_e_fn(x, p),
+        )
+        backend = self._backend(comp, device, comp["me"], 0)
+        init, step, resume = make_sqp(funcs, options, backend=backend)
+        cached = self._solver_cache[key] = (init, step, resume, funcs, g_fn, backend)
+        return cached
+
+    def _solve_sqp(self, comp, x0, params, options, start_time):
+        """(reference problem.hpp:403-511)"""
+        device = resolve_device(options.device)
+        init, step, resume, funcs, g_fn, backend = self._prepare_sqp(comp, options, device)
+        syncs_before = backend.syncs.count
+        n, me = comp["n"], comp["me"]
+
+        def on_device(a):
+            return torch.as_tensor(a, dtype=torch.float64, device=device)
+
+        # Scaling at the starting point (reference problem.hpp:473-477):
+        # per-row Jacobian norms from the banded probes, or the dense Aₑ.
+        if isinstance(backend, BandedBackend):
+            scaling = self._ipm_scaling(g_fn, backend, x0, params)[0]
+        else:
+            xd, pd = on_device(x0), on_device(params)
+            A_e0 = funcs.A_e(xd, pd, self._unit_scaling(comp, device)).cpu().numpy()
+            scaling = ProblemScaling.for_sqp(g_fn(xd, pd).cpu().numpy(), A_e0)
+        sc = ScalingArrays(f=scaling.f, c_e=scaling.c_e, c_i=np.zeros(0))
+
+        def restoration_handler(state, st_time):
+            # The SQP callbacks as an interior-point parent without
+            # inequalities (reference sqp.hpp:118-325), restored densely
+            # as in the JAX package.
+            empty = torch.zeros(0, dtype=torch.float64, device=device)
+            shim = _ShimState(
+                x=state.x, s=empty, c_e=state.c_e, c_i=empty, mu=0.0, alpha=state.alpha,
+                iterations=state.iterations, filt=state.filt, g=state.g, f=state.f,
+                params=state.params,
+                scaling=ScalingArrays(f=state.scaling.f, c_e=state.scaling.c_e, c_i=empty),
+            )
+            outcome, x_n, _s_n, y_n, _z_n, iters = restore(
+                _sqp_as_ipm_parent(funcs, n, me, device), shim, options,
+                base_mu=options.tolerance / 10.0, start_time=st_time,
+            )
+            if outcome == "resume":
+                return resume(state, x_n, y_n, iters)
+            return state._replace(status=int(outcome), x=on_device(x_n))
+
+        state = run_solver(
+            init(x0, params, sc), step, options,
+            callbacks=self._persistent_callbacks + self._callbacks,
+            info_fn=lambda st: self._sqp_info(st, backend),
+            restoration_handler=restoration_handler,
+            start_time=start_time,
+        )
+        return self._record(state, backend, syncs_before)
+
+    @staticmethod
+    def _sqp_info(state, backend) -> IterationInfo:
+        empty = np.zeros(0)
+        H, A_e, _A_i = backend.dense(state.derivs)
+        return IterationInfo(
+            iteration=state.iterations, x=state.x.cpu().numpy(), s=empty,
+            y=state.y.cpu().numpy(), z=empty, g=state.g.cpu().numpy(), H=H, A_e=A_e,
+            A_i=np.zeros((0, state.x.shape[0])),
+        )
+
+    # -- interior point (inequality constraints) ----------------------------
+
+    def _prepare_ipm(self, comp: dict, options: Options, device: torch.device):
+        key = self._cache_key("ipm", options, device)
         cached = self._solver_cache.get(key)
         if cached is not None:
             return cached
         comp["compiled"].prepare(device)
         f_raw, ce_raw, ci_raw = comp["f"], comp["c_e"], comp["c_i"]
-        g_fn = grad(f_raw)
-        syncs = HostSyncs()
-        backend = self._make_kkt_backend(comp, device, syncs)
-        if backend is None:
-            raise NotImplementedError(
-                "problems without OCP stage structure need the dense KKT "
-                "backend, which is not ported yet (ROADMAP queue 1 item 10)"
-            )
+        g_fn, H_f_fn, A_e_fn, A_i_fn, H_c_fn = self._derivatives(comp)
+        # The dense backend reads H, Aₑ and Aᵢ; the banded backend probes
+        # the raw functions and never calls them.
         funcs = IPMFunctions(
             num_decision_variables=comp["n"],
             num_equality_constraints=comp["me"],
@@ -308,22 +492,27 @@ class Problem:
             g=lambda x, p, sc: sc.f * g_fn(x, p),
             c_e=lambda x, p, sc: sc.c_e * ce_raw(x, p),
             c_i=lambda x, p, sc: sc.c_i * ci_raw(x, p),
+            H=lambda x, y, z, p, sc: sc.f * H_f_fn(x, p) + H_c_fn(x, sc.c_e * y, sc.c_i * z, p),
+            H_c=lambda x, y, z, p, sc: H_c_fn(x, sc.c_e * y, sc.c_i * z, p),
+            A_e=lambda x, p, sc: sc.c_e[:, None] * A_e_fn(x, p),
+            A_i=lambda x, p, sc: sc.c_i[:, None] * A_i_fn(x, p),
         )
+        backend = self._backend(comp, device, comp["me"], comp["mi"])
         init, step, resume = make_interior_point(funcs, options, backend=backend)
-        cached = (init, step, resume, funcs, g_fn, backend)
-        self._solver_cache[key] = cached
+        cached = self._solver_cache[key] = (init, step, resume, funcs, g_fn, backend)
         return cached
 
     def _make_kkt_backend(self, comp: dict, device: torch.device, syncs: HostSyncs):
         """Hook for structured problems: OCP returns a banded backend when
-        the stage structure allows it."""
+        the stage structure allows it; None selects the dense backend."""
         return None
 
     @staticmethod
     def _ipm_scaling(g_fn, backend, x0, params):
         """Scaling at a starting point (reference problem.hpp:612-616) from
-        per-row Jacobian norms (O(N·w) memory), on the solve device.
-        Returns (ProblemScaling, ci_rows, ci_cols), the last two for bound
+        per-row Jacobian norms of the banded backend (O(N·w) memory), on
+        the solve device; SQP's too, with no inequality rows. Returns
+        (ProblemScaling, ci_rows, ci_cols), the last two for bound
         detection."""
 
         def on_device(a):
@@ -343,19 +532,29 @@ class Problem:
         device = resolve_device(options.device)
         init, step, resume, funcs, g_fn, backend = self._prepare_ipm(comp, options, device)
         syncs_before = backend.syncs.count
+        banded = isinstance(backend, BandedBackend)
 
         def on_device(a):
             return torch.as_tensor(a, dtype=torch.float64, device=device)
 
         xd, pd = on_device(x0), on_device(params)
 
-        # This set-up runs once per solve, on the solve device.
-        scaling, ci_rows, ci_cols = self._ipm_scaling(g_fn, backend, x0, params)
+        # This set-up runs once per solve, on the solve device. The banded
+        # path never materializes a Jacobian; the dense one scales from
+        # Aₑ and Aᵢ at x0 (reference problem.hpp:612-616).
+        c_i0 = comp["c_i"](xd, pd).cpu().numpy()
+        if banded:
+            scaling, ci_rows, ci_cols = self._ipm_scaling(g_fn, backend, x0, params)
+            bounds = get_bounds_rows(x0, c_i0, ci_cols, ci_rows, comp["ineq_row_linear"])
+        else:
+            ones = self._unit_scaling(comp, device)
+            A_e0 = funcs.A_e(xd, pd, ones).cpu().numpy()
+            A_i0 = funcs.A_i(xd, pd, ones).cpu().numpy()
+            scaling = ProblemScaling.for_ipm(g_fn(xd, pd).cpu().numpy(), A_e0, A_i0)
+            bounds = get_bounds(x0, c_i0, A_i0, comp["ineq_row_linear"])
         sc = ScalingArrays(f=scaling.f, c_e=scaling.c_e, c_i=scaling.c_i)
 
-        # Bound detection and conflict check (reference problem.hpp:597-610)
-        c_i0 = comp["c_i"](xd, pd).cpu().numpy()
-        bounds = get_bounds_rows(x0, c_i0, ci_cols, ci_rows, comp["ineq_row_linear"])
+        # Bound conflict check (reference problem.hpp:597-610)
         if bounds.conflicting_bound_indices:
             return ExitStatus.GLOBALLY_INFEASIBLE, x0
         s0 = np.ones(comp["mi"])
@@ -374,30 +573,27 @@ class Problem:
         def restoration_handler(state, st_time):
             # The restoration subproblem of a stage-banded problem is banded
             # too (its relaxation variables are stage-local), so it runs on
-            # a banded backend of its own, on the parent's device.
+            # a banded backend of its own, on the parent's device; a dense
+            # problem restores densely.
             outcome, x_n, s_n, y_n, z_n, iters = restore(
-                funcs, state, options, start_time=st_time, parent_backend=backend
+                funcs, state, options, start_time=st_time,
+                parent_backend=backend if banded else None,
             )
             if outcome == "resume":
                 return resume(state, x_n, s_n, y_n, z_n, iters)
             return state._replace(status=int(outcome), x=on_device(x_n), s=on_device(s_n))
 
-        callbacks = self._persistent_callbacks + self._callbacks
         state = init(x0, s0, y0, z0, mu0, 0, params, sc)
         state = run_solver(
             state,
             step,
             options,
-            callbacks=callbacks,
+            callbacks=self._persistent_callbacks + self._callbacks,
             info_fn=lambda st: self._ipm_info(st, backend),
             restoration_handler=restoration_handler,
             start_time=start_time,
         )
-        self._last_state = state
-        self.last_solve_stats = SolveStats(
-            state.iterations, backend.syncs.count - syncs_before
-        )
-        return ExitStatus(state.status), state.x.cpu().numpy()
+        return self._record(state, backend, syncs_before)
 
     @staticmethod
     def _ipm_info(state, backend) -> IterationInfo:
@@ -413,6 +609,30 @@ class Problem:
             A_e=A_e,
             A_i=A_i,
         )
+
+
+class _ShimState:
+    """Duck-typed parent state for SQP-entry feasibility restoration."""
+
+    def __init__(self, **kw) -> None:
+        self.__dict__.update(kw)
+
+
+def _sqp_as_ipm_parent(funcs: SQPFunctions, n: int, me: int, device) -> IPMFunctions:
+    empty = torch.zeros(0, dtype=torch.float64, device=device)
+    return IPMFunctions(
+        num_decision_variables=n,
+        num_equality_constraints=me,
+        num_inequality_constraints=0,
+        f=funcs.f,
+        g=funcs.g,
+        c_e=funcs.c_e,
+        c_i=lambda x, p, sc: empty,
+        H=lambda x, y, z, p, sc: funcs.H(x, y, p, sc),
+        H_c=lambda x, y, z, p, sc: funcs.H_c(x, y, p, sc),
+        A_e=funcs.A_e,
+        A_i=lambda x, p, sc: torch.zeros((0, n), dtype=torch.float64, device=device),
+    )
 
 
 def _as_scalar_expr(cost) -> Expr:

@@ -47,12 +47,34 @@ def bind(funcs, params, scaling) -> _Bound:
     return _Bound(funcs, params, scaling)
 
 
+class NewtonFunctions(NamedTuple):
+    """Callbacks for the Newton solver (reference
+    newton_matrix_callbacks.hpp)."""
+
+    num_decision_variables: int
+    f: Callable  # f(x) -> scalar
+    g: Callable  # g(x) -> (n,)
+    H: Callable  # H(x) -> (n, n)
+
+
+class SQPFunctions(NamedTuple):
+    """Callbacks for the SQP solver (reference sqp_matrix_callbacks.hpp)."""
+
+    num_decision_variables: int
+    num_equality_constraints: int
+    f: Callable  # f(x) -> scalar
+    g: Callable  # g(x) -> (n,)
+    H: Callable  # H(x, y) -> (n, n)   full Lagrangian Hessian
+    H_c: Callable  # H_c(x, y) -> (n, n)  constraint part only
+    c_e: Callable  # c_e(x) -> (me,)
+    A_e: Callable  # A_e(x) -> (me, n)
+
+
 class IPMFunctions(NamedTuple):
     """Callbacks for the interior-point solver (reference
-    interior_point_matrix_callbacks.hpp:18). The banded backend takes its
-    derivative blocks from probes of the raw problem functions; the dense
-    H, A_e and A_i callbacks come with the dense backend (ROADMAP queue 1
-    item 10)."""
+    interior_point_matrix_callbacks.hpp:18). The dense backend reads the
+    dense H, A_e and A_i; the banded backend takes its derivative blocks
+    from probes of the raw problem functions and leaves them None."""
 
     num_decision_variables: int
     num_equality_constraints: int
@@ -61,3 +83,7 @@ class IPMFunctions(NamedTuple):
     g: Callable  # g(x) -> (n,)
     c_e: Callable  # c_e(x) -> (me,)
     c_i: Callable  # c_i(x) -> (mi,)
+    H: Callable | None = None  # H(x, y, z) -> (n, n)  full Lagrangian Hessian
+    H_c: Callable | None = None  # H_c(x, y, z) -> (n, n)  constraint part only
+    A_e: Callable | None = None  # A_e(x) -> (me, n)
+    A_i: Callable | None = None  # A_i(x) -> (mi, n)

@@ -32,10 +32,6 @@ from sleipnir_tpu_torch.optimization.solver.funcs import (
     ScalingArrays,
     bind,
 )
-from sleipnir_tpu_torch.optimization.solver.kkt_banded import (
-    BandedBackend,
-    BandedDerivs,
-)
 from sleipnir_tpu_torch.optimization.solver.options import Options
 from sleipnir_tpu_torch.optimization.solver.util.filter import (
     FilterState,
@@ -86,7 +82,8 @@ class IPMState(NamedTuple):
     c_e: torch.Tensor
     c_i: torch.Tensor
     g: torch.Tensor
-    derivs: BandedDerivs
+    #: Backend-specific derivative storage (dense matrices or banded blocks).
+    derivs: object
     E0: torch.Tensor
     filt: FilterState
     prev_delta: torch.Tensor
@@ -131,12 +128,14 @@ def make_interior_point(
     funcs: IPMFunctions,
     options: Options,
     *,
-    backend: BandedBackend,
+    backend,
     in_feasibility_restoration: bool = False,
     stop_check: Callable | None = None,
 ):
     """Build (init, step, resume) for the IPM on a fixed problem shape.
 
+    `backend` is the KKT backend (`kkt_backend.DenseBackend`, or
+    `kkt_banded.BandedBackend` for direct-transcription OCP structure).
     `stop_check(state) -> bool tensor` is read at the top of every
     iteration; when it holds the solve ends as CALLBACK_REQUESTED_STOP
     (feasibility restoration's early exit, reference

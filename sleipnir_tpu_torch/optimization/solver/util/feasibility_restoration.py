@@ -2,8 +2,7 @@
 iterate when the line search fails.
 
 Port of `sleipnir_tpu/optimization/solver/util/feasibility_restoration.py`
-(reference solver/util/feasibility_restoration.hpp), banded branch. It
-solves
+(reference solver/util/feasibility_restoration.hpp). It solves
 
       min  ρ Σ (pₑ + nₑ + pᵢ + nᵢ) + ζ/2 (x − xᵣ)ᵀDᵣ(x − xᵣ)
   s.t. cₑ(x) − pₑ + nₑ = 0
@@ -13,7 +12,9 @@ with ρ = 1e3, ζ = √μ_fr, Dᵣ = diag(min(1, 1/xᵣᵢ²)), with a second
 interior-point instance in restoration mode. The relaxation variables of
 a constraint row belong to that row's stage, so the subproblem of a
 stage-banded parent is stage-banded too, with stage width m + 2(p + q),
-and restoration costs O(N) like the parent solve.
+and restoration costs O(N) like the parent solve. Any other parent (a
+dense IPM, or SQP as an IPM without inequalities) restores on the dense
+backend over the augmented n + 2mₑ + 2mᵢ variables.
 
 An early-stop check replicates the reference's extra iteration callback
 (reference interior_point.hpp:738-756): restoration stops as soon as the
@@ -41,16 +42,19 @@ from sleipnir_tpu_torch.optimization.solver.interior_point import (
     KAPPA_SIGMA,
     make_interior_point,
 )
+from sleipnir_tpu_torch.optimization.solver.kkt_backend import DenseBackend
 from sleipnir_tpu_torch.optimization.solver.kkt_banded import BandedBackend, StageStructure
 from sleipnir_tpu_torch.optimization.solver.options import Options
 from sleipnir_tpu_torch.optimization.solver.solve_driver import run_solver
 from sleipnir_tpu_torch.optimization.solver.util.filter import try_add
+from sleipnir_tpu_torch.optimization.solver.util.host_sync import HostSyncs
 
 RHO = 1e3  # reference feasibility_restoration.hpp:391
 
-#: Largest n + mᵢ for which the parent resumes with least-squares dual
-#: estimates, which need dense Jacobians; longer horizons resume with
-#: reset duals (JAX package feasibility_restoration.py:747-768).
+#: Largest n + mᵢ for which a banded parent resumes with least-squares
+#: dual estimates, which need dense Jacobians; longer horizons resume with
+#: reset duals (JAX package feasibility_restoration.py:747-768). A dense
+#: parent always estimates them, as in the JAX package.
 DENSE_DUALS_MAX = 6000
 
 _F64 = torch.float64
@@ -76,25 +80,26 @@ def restore(
     parent_state,
     options: Options,
     *,
+    base_mu: float | None = None,
     start_time: float | None = None,
-    parent_backend: BandedBackend | None = None,
+    parent_backend=None,
 ):
-    """Run feasibility restoration for an IPM parent on a banded backend.
+    """Run feasibility restoration for an IPM parent, or an SQP parent as
+    an IPM without inequalities (then `base_mu` stands in for its barrier
+    parameter).
 
-    Returns (outcome, x, s, y, z, iterations), numpy arrays, where outcome
-    is "resume" (the parent continues) or a terminal ExitStatus.
+    With a banded `parent_backend` the restoration subproblem is banded
+    too; with a dense one, or none, it is dense, on the augmented (n + 2mₑ + 2mᵢ)
+    variables, and the parent's callbacks must include the dense H_c, A_e
+    and A_i. Returns (outcome, x, s, y, z, iterations), numpy arrays,
+    where outcome is "resume" (the parent continues) or a terminal
+    ExitStatus.
     """
-    if parent_backend is None:
-        raise NotImplementedError(
-            "feasibility restoration of a problem without OCP stage structure "
-            "needs the dense KKT backend, which is not ported yet (ROADMAP "
-            "queue 1 item 10)"
-        )
     x_r = _numpy(parent_state.x)
     s_r = _numpy(parent_state.s)
     c_e0 = _numpy(parent_state.c_e)
     c_i0 = _numpy(parent_state.c_i)
-    mu = float(parent_state.mu)
+    mu = float(base_mu) if base_mu is not None else float(parent_state.mu)
 
     def inf_norm(v):
         return float(np.max(np.abs(v))) if v.shape[0] else 0.0
@@ -106,30 +111,41 @@ def restore(
     p_i0, n_i0 = compute_p_n(c_i0 - s_r, RHO, fr_mu)
     with np.errstate(divide="ignore"):
         D_r = np.minimum(1.0, 1.0 / np.square(x_r))
+    init_viol = float(np.sum(np.abs(c_e0)) + np.sum(np.abs(c_i0 - s_r)))
 
-    solver = _banded_fr_solver(
-        parent, parent_state, options, parent_backend, x_r, s_r, D_r, zeta, mu,
-        init_viol=float(np.sum(np.abs(c_e0)) + np.sum(np.abs(c_i0 - s_r))),
-    )
-    n, me, mi = solver["dims"]
-    pe_idx, ne_idx, pi_idx, ni_idx = solver["idx"]
-
-    # Starting point: padded-slot dummies at fr_μ, slacks synchronized
-    fr_x0 = np.concatenate([x_r, np.full(solver["n_extra"], fr_mu)])
-    fr_x0[pe_idx] = p_e0
-    fr_x0[ne_idx] = n_e0
-    fr_x0[pi_idx] = p_i0
-    fr_x0[ni_idx] = n_i0
-    fr_s0 = np.concatenate([s_r, fr_x0[n:]])
+    banded = isinstance(parent_backend, BandedBackend)
+    if banded:
+        solver = _banded_fr_solver(
+            parent, parent_state, options, parent_backend, x_r, s_r, D_r, zeta, mu, init_viol,
+        )
+        n, me, mi = solver["dims"]
+        pe_idx, ne_idx, pi_idx, ni_idx = solver["idx"]
+        # Starting point: padded-slot dummies at fr_μ, slacks synchronized
+        fr_x0 = np.concatenate([x_r, np.full(solver["n_extra"], fr_mu)])
+        fr_x0[pe_idx] = p_e0
+        fr_x0[ne_idx] = n_e0
+        fr_x0[pi_idx] = p_i0
+        fr_x0[ni_idx] = n_i0
+        fr_s0 = np.concatenate([s_r, fr_x0[n:]])
+        with np.errstate(divide="ignore"):
+            fr_z0 = np.concatenate([fr_mu / s_r, fr_mu / fr_x0[n:]])
+    else:
+        syncs = parent_backend.syncs if parent_backend is not None else HostSyncs()
+        solver = _dense_fr_solver(
+            parent, parent_state, options, syncs, x_r, s_r, D_r, zeta, mu, init_viol
+        )
+        n, me, mi = solver["dims"]
+        fr_x0 = np.concatenate([x_r, p_e0, n_e0, p_i0, n_i0])
+        fr_s0 = np.concatenate([s_r, np.ones(solver["n_extra"])])
+        with np.errstate(divide="ignore"):
+            fr_z0 = np.concatenate([fr_mu / s_r, fr_mu / p_e0, fr_mu / n_e0, fr_mu / p_i0, fr_mu / n_i0])
     fr_y0 = np.zeros(me)
-    with np.errstate(divide="ignore"):
-        fr_z0 = np.concatenate([fr_mu / s_r, fr_mu / fr_x0[n:]])
 
     # Inherit the parent's constraint scaling; cost and new rows unscaled
     # (reference :423-430).
     psc = parent_state.scaling
     fr_scaling = ScalingArrays(
-        f=torch.ones((), dtype=_F64, device=psc.c_i.device),
+        f=torch.ones((), dtype=_F64, device=psc.c_e.device),
         c_e=psc.c_e,
         c_i=torch.cat([psc.c_i, psc.c_i.new_ones(solver["n_extra"])]),
     )
@@ -150,13 +166,17 @@ def restore(
         return _numpy(parent.c_e(xt, params, psc)), _numpy(parent.c_i(xt, params, psc))
 
     def resume_duals(x_res, s_res):
-        # Dense least-squares dual estimation is O(m²n): fine for short
-        # horizons, prohibitive at long ones, where the duals reset and the
-        # parent re-estimates them within a few iterations.
-        if n + mi <= DENSE_DUALS_MAX:
+        # Dense least-squares dual estimation is O(m²n): fine for dense
+        # problems and short horizons, prohibitive at long ones, where the
+        # duals reset and the parent re-estimates them within a few
+        # iterations.
+        if not banded or n + mi <= DENSE_DUALS_MAX:
             xt = torch.as_tensor(x_res, dtype=_F64, device=params.device)
             g_new = _numpy(parent.g(xt, params, psc))
-            A_e, A_i = _dense_jacobians(parent_backend, x_res, params, psc)
+            if banded:
+                A_e, A_i = _dense_jacobians(parent_backend, x_res, params, psc)
+            else:
+                A_e, A_i = _numpy(parent.A_e(xt, params, psc)), _numpy(parent.A_i(xt, params, psc))
             y_est, z_est = lagrange_multiplier_estimate(g_new, A_e, A_i, s_res, mu)
         else:
             y_est = np.zeros(me)
@@ -179,7 +199,7 @@ def restore(
         theta_old = np.sum(np.abs(c_e0)) + np.sum(np.abs(np.minimum(c_i0, 0.0)))
         theta_new = np.sum(np.abs(ce_new)) + np.sum(np.abs(np.minimum(ci_new, 0.0)))
         if (ce_ok and ci_ok) or theta_new < 0.1 * theta_old:
-            return resume_duals(x_new, np.maximum(ci_new, mu))
+            return resume_duals(x_new, np.maximum(ci_new, mu) if mi > 0 else s_new)
         return ExitStatus.LOCALLY_INFEASIBLE, x_new, s_new, None, None, iterations_out
     return ExitStatus.FEASIBILITY_RESTORATION_FAILED, x_new, s_new, None, None, iterations_out
 
@@ -227,6 +247,118 @@ def _dense_jacobians(backend: BandedBackend, x, params, scaling):
     return _numpy(scaling.c_e)[:, None] * A_e, _numpy(scaling.c_i)[:, None] * A_i
 
 
+def _stop_check(parent, parent_state, x_r, s_r, mu: float, init_viol: float):
+    """The early-stop check: the parent filter accepts the candidate with
+    a 10% violation reduction (reference interior_point.hpp:738-756), from
+    the parent's barrier, step size, gradient and filter at the request."""
+    n = parent.num_decision_variables
+    mi = parent.num_inequality_constraints
+    psc = parent_state.scaling
+    device = parent_state.x.device
+    x_r_t = torch.as_tensor(x_r, dtype=_F64, device=device)
+    s_r_t = torch.as_tensor(s_r, dtype=_F64, device=device)
+    s_r_log = float(np.sum(np.log(s_r))) if mi > 0 else 0.0
+    init_cost = torch.as_tensor(float(parent_state.f) - mu * s_r_log, dtype=_F64, device=device)
+    init_viol_t = torch.as_tensor(init_viol, dtype=_F64, device=device)
+    alpha = parent_state.alpha
+    parent_g = parent_state.g
+    parent_filter = parent_state.filt
+
+    def stop_check(rst):
+        tx = rst.x[:n]
+        ts = rst.s[:mi]
+        tf = parent.f(tx, rst.params, psc)
+        tce = parent.c_e(tx, rst.params, psc)
+        tci = parent.c_i(tx, rst.params, psc)
+        trial_cost = tf - mu * torch.sum(torch.log(ts))
+        trial_viol = torch.sum(torch.abs(tce)) + torch.sum(torch.abs(tci - ts))
+        D_phi_r = parent_g @ (tx - x_r_t) - mu * torch.sum((ts - s_r_t) / s_r_t)
+        acc, _ = try_add(
+            parent_filter, init_cost, init_viol_t, trial_cost, trial_viol, D_phi_r, alpha
+        )
+        return (trial_viol < 0.9 * init_viol_t) & acc
+
+    return stop_check
+
+
+def _dense_fr_solver(parent, parent_state, options, syncs: HostSyncs, x_r, s_r, D_r,
+                     zeta: float, mu: float, init_viol: float) -> dict:
+    """The restoration interior-point solver of one invocation on the
+    dense backend, over [x; pₑ; nₑ; pᵢ; nᵢ]: its init and step (JAX
+    package feasibility_restoration.py:160-343)."""
+    n = parent.num_decision_variables
+    me = parent.num_equality_constraints
+    mi = parent.num_inequality_constraints
+    device = parent_state.x.device
+    psc = parent_state.scaling
+    n_extra = 2 * me + 2 * mi
+    N = n + n_extra
+    MI = mi + n_extra
+    x_r_t = torch.as_tensor(x_r, dtype=_F64, device=device)
+    D_r_t = torch.as_tensor(D_r, dtype=_F64, device=device)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=_F64, device=device)
+
+    eye_e = torch.eye(me, dtype=_F64, device=device)
+    eye_i = torch.eye(mi, dtype=_F64, device=device)
+    rho_tail = torch.full((n_extra,), RHO, dtype=_F64, device=device)
+
+    def fr_f(xp, params, sc):
+        diff = xp[:n] - x_r_t
+        return RHO * torch.sum(xp[n:]) + 0.5 * zeta * diff @ (D_r_t * diff)
+
+    def fr_g(xp, params, sc):
+        return torch.cat([zeta * D_r_t * (xp[:n] - x_r_t), rho_tail])
+
+    def fr_H(xp, yp, zp, params, sc):
+        out = zeros(N, N)
+        out[:n, :n] = torch.diag(zeta * D_r_t) + parent.H_c(xp[:n], yp, zp[:mi], params, psc)
+        return out
+
+    def fr_c_e(xp, params, sc):
+        return parent.c_e(xp[:n], params, psc) - xp[n : n + me] + xp[n + me : n + 2 * me]
+
+    def fr_A_e(xp, params, sc):
+        out = zeros(me, N)
+        out[:, :n] = parent.A_e(xp[:n], params, psc)
+        out[:, n : n + me] = -eye_e
+        out[:, n + me : n + 2 * me] = eye_e
+        return out
+
+    def fr_c_i(xp, params, sc):
+        top = parent.c_i(xp[:n], params, psc) - xp[n + 2 * me : n + 2 * me + mi] + xp[n + 2 * me + mi :]
+        return torch.cat([top, xp[n:]])
+
+    def fr_A_i(xp, params, sc):
+        out = zeros(MI, N)
+        out[:mi, :n] = parent.A_i(xp[:n], params, psc)
+        out[:mi, n + 2 * me : n + 2 * me + mi] = -eye_i
+        out[:mi, n + 2 * me + mi :] = eye_i
+        out[mi:, n:] = torch.eye(n_extra, dtype=_F64, device=device)
+        return out
+
+    fr_funcs = IPMFunctions(
+        num_decision_variables=N,
+        num_equality_constraints=me,
+        num_inequality_constraints=MI,
+        f=fr_f,
+        g=fr_g,
+        c_e=fr_c_e,
+        c_i=fr_c_i,
+        H=fr_H,
+        H_c=lambda xp, yp, zp, params, sc: zeros(N, N),
+        A_e=fr_A_e,
+        A_i=fr_A_i,
+    )
+    fr_backend = DenseBackend(N, me, MI, device, syncs)
+    fr_init, fr_step, _ = make_interior_point(
+        fr_funcs, options, backend=fr_backend, in_feasibility_restoration=True,
+        stop_check=_stop_check(parent, parent_state, x_r, s_r, mu, init_viol),
+    )
+    return {"init": fr_init, "step": fr_step, "dims": (n, me, mi), "n_extra": n_extra}
+
+
 def _banded_fr_solver(parent, parent_state, options, parent_backend, x_r, s_r, D_r,
                       zeta: float, mu: float, init_viol: float) -> dict:
     """The restoration interior-point solver of one invocation, on a banded
@@ -261,7 +393,7 @@ def _banded_fr_solver(parent, parent_state, options, parent_backend, x_r, s_r, D
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
 
     pe_t, ne_t, pi_t, ni_t = (dev(a) for a in (pe_idx, ne_idx, pi_idx, ni_idx))
-    x_r_t, D_r_t, s_r_t = dev(x_r, _F64), dev(D_r, _F64), dev(s_r, _F64)
+    x_r_t, D_r_t = dev(x_r, _F64), dev(D_r, _F64)
     ones_sc = ScalingArrays(
         f=dev(1.0, _F64), c_e=torch.ones(me, dtype=_F64, device=device),
         c_i=torch.ones(mi, dtype=_F64, device=device),
@@ -317,31 +449,7 @@ def _banded_fr_solver(parent, parent_state, options, parent_backend, x_r, s_r, D
         c_i=lambda xp, prm, sc: sc.c_i * fr_ci_raw(xp, prm),
     )
 
-    # Early-stop check: the parent filter accepts the candidate with a 10%
-    # violation reduction (reference interior_point.hpp:738-756), from the
-    # parent's barrier, step size, gradient and filter at the request.
-    psc = parent_state.scaling
-    s_r_log = float(np.sum(np.log(s_r))) if mi > 0 else 0.0
-    init_cost = dev(float(parent_state.f) - mu * s_r_log, _F64)
-    init_viol_t = dev(init_viol, _F64)
-    alpha = parent_state.alpha
-    parent_g = parent_state.g
-    parent_filter = parent_state.filt
-
-    def stop_check(rst):
-        tx = rst.x[:n]
-        ts = rst.s[:mi]
-        tf = parent.f(tx, rst.params, psc)
-        tce = parent.c_e(tx, rst.params, psc)
-        tci = parent.c_i(tx, rst.params, psc)
-        trial_cost = tf - mu * torch.sum(torch.log(ts))
-        trial_viol = torch.sum(torch.abs(tce)) + torch.sum(torch.abs(tci - ts))
-        D_phi_r = parent_g @ (tx - x_r_t) - mu * torch.sum((ts - s_r_t) / s_r_t)
-        acc, _ = try_add(
-            parent_filter, init_cost, init_viol_t, trial_cost, trial_viol, D_phi_r, alpha
-        )
-        return (trial_viol < 0.9 * init_viol_t) & acc
-
+    stop_check = _stop_check(parent, parent_state, x_r, s_r, mu, init_viol)
     fr_init, fr_step, _ = make_interior_point(
         fr_funcs, options, backend=fr_backend,
         in_feasibility_restoration=True, stop_check=stop_check,

@@ -1,6 +1,7 @@
-"""Interior-point KKT error measures from transpose products (port of the
-product-based variants of `sleipnir_tpu/optimization/solver/util/kkt_error.py`;
-reference solver/util/kkt_error.hpp:30-251).
+"""KKT error measures of the Newton, SQP and interior-point solvers from
+transpose products (port of the product-based variants of
+`sleipnir_tpu/optimization/solver/util/kkt_error.py`; reference
+solver/util/kkt_error.hpp:30-251).
 
 Scaled ∞-norm errors follow equation (5) of Wächter-Biegler (s_d, s_c
 normalizers with s_max = 100); the 1-norm variant serves the line search's
@@ -25,6 +26,34 @@ def _one_norm(v: torch.Tensor) -> torch.Tensor:
 
 def _clamp_low(v: torch.Tensor, low: float) -> torch.Tensor:
     return torch.clamp(v, min=low)
+
+
+def kkt_error_newton_one(g):
+    return _one_norm(g)
+
+
+def unscaled_kkt_error_newton(scaling, g):
+    return _inf_norm(g / scaling.f)
+
+
+def kkt_error_sqp_one_products(g, AeT_y, c_e, y):
+    """1-norm SQP error from the precomputed Aₑᵀy product."""
+    if c_e.shape[0] == 0:
+        return _one_norm(g)
+    return _one_norm(g - AeT_y) + _one_norm(c_e)
+
+
+def unscaled_kkt_error_sqp_products(scaling, g, AeT_y, c_e, y):
+    """Unscaled ∞-norm SQP error from transpose products (the rescaling of
+    `unscaled_kkt_error_ipm_products` without inequalities)."""
+    if c_e.shape[0] == 0:
+        return unscaled_kkt_error_newton(scaling, g)
+    inv_d_f = 1.0 / scaling.f
+    grad = (g - AeT_y) * inv_d_f
+    c_e_u = c_e / scaling.c_e
+    y_u = scaling.c_e * y * inv_d_f
+    s_d = _clamp_low(_one_norm(y_u) / c_e.shape[0], S_MAX) / S_MAX
+    return torch.maximum(_inf_norm(grad) / s_d, _inf_norm(c_e_u))
 
 
 def kkt_error_ipm_inf_products(g, AeT_y, AiT_z, c_e, c_i, s, y, z, mu):

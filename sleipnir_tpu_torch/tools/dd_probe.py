@@ -4,12 +4,15 @@
     python -m sleipnir_tpu_torch.tools.dd_probe --device cpu  # plain version
 
 The counterpart of `tools/pallas_dd_probe.py`: the same inputs from
-`numpy.random.default_rng(0)`, each double-float primitive run in its
-kernel (`ops/cuda_dd_probe.py`), and the same lines: two_sum and two_prod
+`numpy.random.default_rng(0)`, the whole probe run in one kernel launch
+(`ops/cuda_dd_probe.probe`), and the same lines: two_sum and two_prod
 exactness, add2, mul2 and div2 against float64, and a 13×13 one-hot float32
-product against the exact one. On the card it then runs the plain torch
-version (`ops/dd.py`) on the same inputs and requires every output to
-equal the kernel's bit for bit; it exits non-zero if one does not.
+product against the exact one. A further line gives the error of the same
+product in a single TF32 pass of the card's matrix unit, the question the
+TPU probe asks of its MXU; it is reported, not checked. On the card it
+then runs the plain torch version (`ops/dd.py`) on the same inputs and
+requires every output to equal the kernel's bit for bit; it exits
+non-zero if one does not.
 """
 
 from __future__ import annotations
@@ -59,6 +62,23 @@ def run_probe(x: dict, primitive, onehot) -> dict:
         out[name] = primitive(name, x["ah"], x["al"], x["bh"], x["bl"])
     out["onehot"] = (onehot(x["P"], x["Mh"]),)
     return out
+
+
+def run_fused(x: dict):
+    """The whole probe in one launch (plain versions on the CPU): the
+    outputs as `run_probe` returns them, and the single-pass TF32
+    one-hot product."""
+    pairs, products = cuda_dd_probe.probe(x["ah"], x["al"], x["bh"], x["bl"], x["P"], x["Mh"])
+    out = {name: tuple(pairs[op]) for name, (op, _arity) in cuda_dd_probe.PRIMITIVES.items()}
+    out["onehot"] = (products[0],)
+    return out, products[1]
+
+
+def tf32_single_pass_error(x: dict, single) -> float:
+    """Max error of the one-hot product in one TF32 pass against the exact
+    float64 product."""
+    exact = x["P"].cpu().double() @ x["Mh"].cpu().double()
+    return float((single.cpu().double() - exact).abs().max())
 
 
 def plain_primitive(name: str, *inputs):
@@ -114,10 +134,12 @@ def main(argv: list[str] | None = None) -> dict:
         sys.exit("torch.cuda.is_available() is false; pass --device cpu for the plain version")
     print(f"device: {torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'}")
     x = probe_inputs(device)
-    out = run_probe(x, cuda_dd_probe.primitive, cuda_dd_probe.onehot_product)
-    result = {"lines": error_lines(x, out)}
+    out, single = run_fused(x)
+    result = {"lines": error_lines(x, out), "tf32_single_pass_max_err": tf32_single_pass_error(x, single)}
     for label, value in result["lines"]:
         print(f"{label}: {value}")
+    print(f"one-hot dot in one TF32 pass, max err: {result['tf32_single_pass_max_err']}"
+          + ("" if device.type == "cuda" else " (plain model: X truncated to 11 bits)"))
     if device.type != "cuda":
         print("kernel vs plain: not run (the plain version ran; the kernels need the card)")
         return result

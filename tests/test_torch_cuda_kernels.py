@@ -248,3 +248,42 @@ def test_dd_probe_kernels_match_plain_bit_for_bit(cuda_device):
     lines = dict(dd_probe.error_lines(x, out))
     assert lines["two_sum max err"] == 0.0
     assert lines["two_prod max rel err"] == 0.0
+
+
+@pytest.mark.cuda
+def test_dd_probe_runs_in_one_launch_bit_for_bit(cuda_device):
+    """The fused probe: one launch per run, every primitive equal to
+    ops/dd.py bit for bit, the one-hot product equal to torch.matmul bit
+    for bit (float32, TF32 off), and the single TF32 pass no better than
+    X truncated to 11 bits allows."""
+    from sleipnir_tpu_torch.tools import dd_probe
+
+    x = dd_probe.probe_inputs(cuda_device)
+    before = cuda_dd_probe.LAUNCHES
+    out, single = dd_probe.run_fused(x)
+    torch.cuda.synchronize()
+    assert cuda_dd_probe.LAUNCHES == before + 1
+    plain = dd_probe.run_probe(x, dd_probe.plain_primitive, plain_dd.onehot_product)
+    assert dd_probe.bitwise_equal(out, plain), dd_probe.max_abs_diff(out, plain)
+    assert not torch.backends.cuda.matmul.allow_tf32
+    reference = torch.matmul(x["P"], x["Mh"])
+    assert torch.equal(out["onehot"][0].view(torch.int32), reference.view(torch.int32))
+    assert torch.equal(
+        cuda_dd_probe.onehot_product(x["P"], x["Mh"]).view(torch.int32), reference.view(torch.int32)
+    )
+    # One TF32 pass keeps 11 significant bits: its error is at most one
+    # unit in the 11th bit of the largest entry, and nonzero on these data.
+    err = dd_probe.tf32_single_pass_error(x, single)
+    assert 0.0 < err <= float(x["Mh"].abs().max()) * 2.0**-10
+
+
+@pytest.mark.cuda
+def test_dd_probe_onehot_product_exact_at_every_width(cuda_device):
+    rng = np.random.default_rng(5)
+    for w in (1, 7, 8, 9, 13, 16):
+        P = np.zeros((w, w), np.float32)
+        P[np.arange(w), rng.permutation(w)] = 1.0
+        X = (rng.standard_normal((w, w)) * 10.0 ** rng.uniform(-30, 30, (w, w))).astype(np.float32)
+        Pg, Xg = torch.as_tensor(P, device=cuda_device), torch.as_tensor(X, device=cuda_device)
+        out = cuda_dd_probe.onehot_product(Pg, Xg).cpu().numpy()
+        np.testing.assert_array_equal(out.view(np.int32), (P @ X).view(np.int32))

@@ -95,5 +95,69 @@ def test_probe_wrappers_reject_what_the_kernels_do_not_take():
         cuda_dd_probe.primitive("two_sum", a, a)
     with pytest.raises(ValueError, match="takes 4"):
         cuda_dd_probe.primitive("add2", a.float(), a.float())
-    with pytest.raises(ValueError, match="w\\*w <= 1024"):
-        cuda_dd_probe.onehot_product(torch.zeros(33, 33), torch.zeros(33, 33))
+    with pytest.raises(ValueError, match="w <= 16"):
+        cuda_dd_probe.onehot_product(torch.zeros(17, 17), torch.zeros(17, 17))
+
+
+def _significant_bits(values: np.ndarray) -> np.ndarray:
+    """Significant bits of each float32 value: from its leading to its
+    last set bit (0 for a zero)."""
+    out = []
+    for v in np.abs(values.astype(np.float64)):
+        if v == 0.0:
+            out.append(0)
+            continue
+        mantissa = int(np.ldexp(np.frexp(v)[0], 60))
+        while mantissa % 2 == 0:
+            mantissa //= 2
+        out.append(mantissa.bit_length())
+    return np.array(out)
+
+
+def _split_cases(kind: str) -> np.ndarray:
+    rng = np.random.default_rng(11)
+    f32 = np.finfo(np.float32)
+    if kind == "random":
+        return (rng.standard_normal(2000) * 10.0 ** rng.uniform(-44, 37, 2000)).astype(np.float32)
+    if kind == "bit-patterns":
+        values = rng.integers(0, 2**32, 4000, dtype=np.uint64).astype(np.uint32).view(np.float32)
+        return values[np.isfinite(values)]
+    return np.array(
+        [0.0, -0.0, f32.max, -f32.max, f32.tiny, -f32.tiny, f32.smallest_subnormal,
+         -f32.smallest_subnormal, np.nextafter(f32.tiny, np.float32(0.0)), 3e-39, -2.9e-40,
+         1.0, -1.0, np.nextafter(np.float32(1.0), np.float32(2.0)), 8191.0, -16777215.0],
+        np.float32,
+    )
+
+
+@pytest.mark.parametrize("kind", ["random", "bit-patterns", "edge"])
+def test_tf32_split_parts_have_11_bits_and_sum_exactly(kind):
+    """The plain version of the probe kernel's three TF32 parts: each part
+    keeps at most 11 significant bits (a TF32 operand's precision), a
+    normal part is a TF32 register value (its low 13 field bits are 0),
+    and the parts sum back to x exactly, also in float32 in the kernel's
+    order (x1 + x2) + x3. Compared by value: the sum turns -0 into +0."""
+    x = _split_cases(kind)
+    parts = [p.numpy() for p in tdd.tf32_split(torch.as_tensor(x))]
+    for part in parts:
+        assert _significant_bits(part).max() <= 11
+        bits = part.view(np.uint32)
+        normal = (bits & 0x7F800000) != 0
+        assert np.all(bits[normal] & 0x1FFF == 0)
+    x1, x2, x3 = parts
+    np.testing.assert_array_equal(x1.astype(np.float64) + x2 + x3, x.astype(np.float64))
+    np.testing.assert_array_equal((x1 + x2) + x3, x)
+    assert np.all(np.abs(x1) <= np.abs(x))
+
+
+def test_fused_probe_on_cpu_runs_the_plain_version():
+    cuda_dd_probe.reset_counters()
+    x = dd_probe.probe_inputs("cpu")
+    out, single = dd_probe.run_fused(x)
+    plain = dd_probe.run_probe(x, dd_probe.plain_primitive, tdd.onehot_product)
+    assert cuda_dd_probe.LAUNCHES == 0
+    assert list(out) == list(plain)
+    assert dd_probe.bitwise_equal(out, plain)
+    truncated = tdd.onehot_product(x["P"], tdd.tf32_truncate(x["Mh"]))
+    assert torch.equal(single, truncated)
+    assert 0.0 < dd_probe.tf32_single_pass_error(x, single) <= float(x["Mh"].abs().max()) * 2.0**-10

@@ -187,10 +187,22 @@ def test_restore_matches_jax(violated, restored):
     assert np.all(tout[2] > 0.0)
 
 
-def test_dense_restoration_raises(violated):
+def test_dense_restoration_raises(violated, restored):
+    """Without a banded parent, restoration no longer raises: it runs on
+    the dense backend over [x; pₑ; nₑ; pᵢ; nᵢ] and hands back the iterate
+    as the banded restoration of the same iterate does ("resume", below
+    0.95 of the start's violation). The banded subproblem adds padded
+    slots, so the two solves differ and their iterations are held within
+    a few."""
     _, t = violated
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tfr.restore(t["funcs"], t["state"], t["options"])
+    (_, _), (_, tout) = restored
+    dense = tfr.restore(t["funcs"], t["state"], t["options"])
+    v0 = _torch_viol(t, t["state"].x.numpy())
+    assert dense[0] == tout[0] == "resume"
+    assert _torch_viol(t, dense[1]) < 0.95 * v0
+    assert abs(dense[-1] - tout[-1]) <= 3
+    assert dense[3].shape == (t["state"].c_e.shape[0],)
+    assert np.all(dense[2] > 0.0)
 
 
 def test_solve_enters_restoration_where_jax_does(violated, monkeypatch):
