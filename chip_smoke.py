@@ -16,9 +16,9 @@ Phases, each of which exits non-zero on failure:
      kernels (K3a/K3b); each timed with CUDA events, and K1 at (·, 5001, 4)
      with one system and with the ladder's four;
   4. main path: the cart-pole swing-up at N=100 solved on the card to the
-     1e-8 tolerance, once and then twice timed from the initial guess; the
-     result must satisfy the RK4 physics oracle and reach the target
-     state, and both kernels must have been launched by the solves;
+     1e-8 tolerance, once, timed from the initial guess; the result must
+     satisfy the RK4 physics oracle and reach the target state, and both
+     kernels must have been launched by the solve;
   5. precision probe: `sleipnir_tpu_torch.tools.dd_probe` on the card, one
      kernel launch per probe run; every double-float output must equal
      its plain version bit for bit and the one-hot product torch.matmul's;
@@ -37,10 +37,24 @@ Phases, each of which exits non-zero on failure:
      1e-7, and K1/K2 launched at K=5001;
   9. dense path: the README example through SQP (x = 18, y = 6) and the
      plain-Problem flywheel at N=1000 through the dense interior-point
-     method, which must pass the numpy oracle.
+     method, which must pass the numpy oracle;
+ 10. minimum time (the arrowhead border): the flywheel spun up to 50 rad/s
+     in minimum time with one shared timestep (VARIABLE_SINGLE) at
+     N=5000, solved once from its initial guess with warnings as errors
+     (no dense fallback); SUCCESS, N·dt within 1e-3 of the analytic
+     optimum, K1 at (4, 5001, 4) and K2 at (4, 5001, 4) for the border
+     columns and (1, 5001, 4) for the steps;
+ 11. the rest of the OCP layer: the minimum-time double integrator with
+     one timestep per step (VARIABLE) at N=1000 (total time 2 s, K1 at
+     (4, 1001, 8)), direct collocation of ẋ = −x + u at N=5000 (the
+     Hermite–Simpson defect recomputed in numpy), the differential drive
+     at N=40 (RK4 oracle), the double integrator at N=70 and single
+     shooting at N=10 on the dense path.
 
-Launch counts are reset just before each path (phases 4-9) and read just
-after it. The last two lines of output are a JSON object of per-kernel
+Phase 3 also holds K2 with the border's batched right-hand sides:
+(4, 5001, 4) with one column, the path's shape, and (4, 101, 13) with
+two. Launch counts are reset just before each path (phases 4-11) and read
+just after it. The last two lines of output are a JSON object of per-kernel
 results and a JSON object naming the device.
 """
 
@@ -52,6 +66,7 @@ import math
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -80,7 +95,20 @@ LONG_CASES = [
     (1, 5001, 3, "random"), (4, 5001, 4, "random"), (4, 1001, 13, "random"),
     (4, 5001, 13, "random"), (4, 2001, 37, "conditioned"),
 ]
+#: K2 over the ladder's candidates with the border columns as right-hand
+#: sides (B, K, w, r): the minimum-time flywheel's shape at N=5000 (one
+#: border column) and a wider one with two.
+BORDER_SOLVE_CASES = [(4, 5001, 4, 1), (4, 101, 13, 2)]
 FLYWHEEL_N = 5000
+#: The minimum-time flywheel (VARIABLE_SINGLE) at the top of the repo's
+#: scalability sweep, and the minimum-time double integrator with one
+#: timestep per step (VARIABLE) at the JAX package's largest size that
+#: reaches SUCCESS on a CPU (478 iterations there).
+MIN_TIME_N = 5000
+PER_STEP_N, PER_STEP_JAX_ITERATIONS = 1000, 478
+#: Direct collocation of ẋ = −x + u over 3 s (tests/optimization/
+#: test_ocp.py:88-111 at the long horizon).
+COLLOCATION_N, COLLOCATION_T = 5000, 3.0
 #: The plain-Problem flywheel on the dense path, at the JAX package's
 #: default horizon.
 DENSE_FLYWHEEL_N = 1000
@@ -257,8 +285,16 @@ def main() -> None:
     dev = torch.device("cuda")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {kind}", flush=True)
 
-    from sleipnir_tpu_torch import ExitStatus, Problem
-    from sleipnir_tpu_torch.models import flywheel
+    from sleipnir_tpu_torch import (
+        OCP,
+        DynamicsType,
+        ExitStatus,
+        Options,
+        Problem,
+        TimestepMethod,
+        TranscriptionMethod,
+    )
+    from sleipnir_tpu_torch.models import differential_drive, double_integrator, flywheel
     from sleipnir_tpu_torch.models.cart_pole import (
         cart_pole_problem,
         dynamics_numpy,
@@ -398,37 +434,56 @@ def main() -> None:
             if not entry[key] <= REL_TOL:
                 fail("kernels", f"long {(B, K, w)}: {key} {entry[key]:.3e} > {REL_TOL}")
         del Dg, Eg, bg, fk, xk, fp, xp, xf, f1, b1, xs, xs_plain
+    # K2 with the border's batched right-hand sides, after K1 at the same
+    # shape: held on the kernel factor alone and, with K1, against the
+    # plain factor and solve.
+    border = {}
+    for B, K, w, r in BORDER_SOLVE_CASES:
+        D, E, b = random_system(np.random.default_rng(B * K + w + r), B, K, w, r)
+        Dg, Eg, bg = (torch.tensor(a, dtype=torch.float64, device=dev) for a in (D, E, b))
+        fk = cuda_banded.banded_factor(Dg, Eg)
+        xk = cuda_banded.banded_solve(fk, bg)
+        xs_plain = plain.block_tridiag_solve(fk, bg)
+        xp = plain.block_tridiag_solve(plain.block_tridiag_factor(Dg, Eg), bg)
+        torch.cuda.synchronize()
+        entry = {
+            "B": B, "K": K, "w": w, "r": r, "system": "random",
+            "max_abs_err": (xk - xs_plain).abs().max().item(),
+            "rel_err": rel_diff(xk, xs_plain),
+            "with_factor_rel_err": rel_diff(xk, xp),
+            "ms": cuda_ms(lambda: cuda_banded.banded_solve(fk, bg), 5),
+            "plain_ms": cuda_ms(lambda: plain.block_tridiag_solve(fk, bg), 1),
+        }
+        entry["us_per_stage"] = 1e3 * entry["ms"] / K
+        entry["bound_ms"], entry["bound_by"] = solve_bound(B, K, w, r)
+        border[B, K, w, r] = entry
+        print(f"kernels border solve (B={B}, K={K}, w={w}, r={r}): rel diff {entry['rel_err']:.3e} "
+              f"(with K1 against the plain factor {entry['with_factor_rel_err']:.3e}), "
+              f"{entry['ms']:.3f} ms (plain {entry['plain_ms']:.1f}, bound "
+              f"{entry['bound_ms']:.5f})", flush=True)
+        for key in ("rel_err", "with_factor_rel_err"):
+            if not entry[key] <= REL_TOL:
+                fail("kernels", f"border solve {(B, K, w, r)}: {key} {entry[key]:.3e} > {REL_TOL}")
+        del Dg, Eg, bg, fk, xk, xs_plain, xp
     torch.cuda.empty_cache()
     print(f"kernels phase: {time.monotonic() - t_phase:.1f} s", flush=True)
 
     # -- 4. main path -----------------------------------------------------
     t_phase = time.monotonic()
     problem, X, U = cart_pole_problem(N=N, total_time=TOTAL_TIME)
-    guess = X.value().copy()
     cuda_banded.reset_counters()
     t0 = time.monotonic()
     status = problem.solve(device="cuda")
-    print(f"first solve: {status}, {problem.last_solve_stats.iterations} iterations, "
-          f"{time.monotonic() - t0:.2f} s", flush=True)
-    if status != ExitStatus.SUCCESS:
-        fail("main path", f"first solve ended {status}")
-    solve_s, iterations = [], []
-    for _ in range(2):
-        X.set_value(guess)
-        U.set_value(np.zeros((1, N + 1)))
-        t0 = time.monotonic()
-        status = problem.solve(device="cuda")
-        torch.cuda.synchronize()
-        solve_s.append(time.monotonic() - t0)
-        iterations.append(problem.last_solve_stats.iterations)
-        if status != ExitStatus.SUCCESS:
-            fail("main path", f"timed solve ended {status}")
+    torch.cuda.synchronize()
+    solve_s = time.monotonic() - t0
     launches = {"factor": cuda_banded.FACTOR_LAUNCHES, "solve": cuda_banded.SOLVE_LAUNCHES}
     stats = problem.last_solve_stats
-    print(f"timed solves: {[f'{t * 1e3:.1f} ms' for t in solve_s]}, iterations {iterations}, "
-          f"best {min(solve_s) * 1e3:.1f} ms ({min(solve_s) * 1e3 / iterations[0]:.2f} ms/iteration), "
+    print(f"solve: {status}, {stats.iterations} iterations, {solve_s * 1e3:.1f} ms "
+          f"({solve_s * 1e3 / max(stats.iterations, 1):.2f} ms/iteration), "
           f"host syncs/iteration {stats.host_syncs_per_iteration:.2f}, "
           f"launches factor {launches['factor']} solve {launches['solve']}", flush=True)
+    if status != ExitStatus.SUCCESS:
+        fail("main path", f"solve ended {status}")
     if launches["factor"] == 0 or launches["solve"] == 0:
         fail("main path", f"a kernel was never launched: {launches}")
 
@@ -667,9 +722,159 @@ def main() -> None:
         fail("dense path", "flywheel oracle: " + "; ".join(dense_failures[:5]))
     print(f"dense path phase: {time.monotonic() - t_phase:.1f} s", flush=True)
 
+    # -- 10. minimum time: the arrowhead border ----------------------------
+    t_phase = time.monotonic()
+    t0 = time.monotonic()
+    mt, MX, MU = flywheel.flywheel_min_time_problem(N=MIN_TIME_N)
+    mt_options = Options(device="cuda")
+    mt_backend = mt._prepare_ipm(mt._compile(), mt_options, dev)[-1]
+    mt_setup_s = time.monotonic() - t0
+    if type(mt_backend).__name__ != "BandedBackend" or mt_backend.nb != 1:
+        fail("minimum time", f"the solve would run on {type(mt_backend).__name__} "
+             f"with nb={getattr(mt_backend, 'nb', None)}, not the bordered banded backend")
+    cuda_banded.reset_counters()
+    t0 = time.monotonic()
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        status = mt.solve(mt_options)
+    torch.cuda.synchronize()
+    mt_s = time.monotonic() - t0
+    mt_shapes = dict(cuda_banded.LAUNCHES_BY_SHAPE)
+    mt_stats = mt.last_solve_stats
+    mt_total = float(mt.dt().value(0, 0)) * MIN_TIME_N
+    t_star = flywheel.min_time_optimum()
+    mt_x, mt_u = MX.value(), MU.value()
+    print(f"minimum-time flywheel N={MIN_TIME_N} (VARIABLE_SINGLE, border nb=1, K="
+          f"{mt_backend.K}, w={mt_backend.w}): {status}, {mt_stats.iterations} iterations (the "
+          f"JAX package on a CPU: 31 at N=200, 228 at N=1000), set-up {mt_setup_s:.2f} s, solve "
+          f"{mt_s:.2f} s ({mt_s * 1e3 / max(mt_stats.iterations, 1):.1f} ms/iteration), host syncs "
+          f"{mt_stats.host_syncs} ({mt_stats.host_syncs_per_iteration:.3f}/iteration), N·dt "
+          f"{mt_total:.10f} s against T* {t_star:.10f} s (rel {abs(mt_total / t_star - 1):.3e}), "
+          f"x_N {mt_x[0, -1]:.9f}, launches {mt_shapes}", flush=True)
+    if status != ExitStatus.SUCCESS:
+        fail("minimum time", f"solve ended {status}")
+    if not abs(mt_total / t_star - 1.0) <= 1e-3:
+        fail("minimum time", f"N·dt = {mt_total} is not within 1e-3 of T* = {t_star}")
+    if not (np.isfinite(mt_x).all() and np.isfinite(mt_u).all() and abs(mt_x[0, 0]) <= 1e-8
+            and abs(mt_x[0, -1] - 50.0) <= 1e-6 and np.abs(mt_u).max() <= 12.0 + 1e-9):
+        fail("minimum time", f"x_0 {mt_x[0, 0]}, x_N {mt_x[0, -1]}, max |u| {np.abs(mt_u).max()}")
+    K_mt = MIN_TIME_N + 1
+    for key in (("factor", 4, K_mt, 4), ("solve", 4, K_mt, 4), ("solve", 1, K_mt, 4)):
+        if not mt_shapes.get(key):
+            fail("minimum time", f"no launch at {key}: {mt_shapes}")
+    print(f"minimum time phase: {time.monotonic() - t_phase:.1f} s", flush=True)
+
+    # -- 11. the rest of the OCP layer --------------------------------------
+    t_phase = time.monotonic()
+    rest_shapes: collections.Counter = collections.Counter()
+
+    def solve_path(label, problem):
+        cuda_banded.reset_counters()
+        t0 = time.monotonic()
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            status = problem.solve(device="cuda")
+        torch.cuda.synchronize()
+        seconds = time.monotonic() - t0
+        shapes = dict(cuda_banded.LAUNCHES_BY_SHAPE)
+        rest_shapes.update(shapes)
+        [cached] = [v for k, v in problem._solver_cache.items() if k[0] == "ipm"]
+        backend = cached[-1]
+        stats = problem.last_solve_stats
+        print(f"{label}: {status}, {stats.iterations} iterations, {seconds:.2f} s "
+              f"({seconds * 1e3 / max(stats.iterations, 1):.1f} ms/iteration), "
+              f"{type(backend).__name__}"
+              + (f" K={backend.K} w={backend.w}" if hasattr(backend, "K") else "")
+              + f", host syncs {stats.host_syncs_per_iteration:.3f}/iteration, "
+              f"launches {shapes}", flush=True)
+        if status != ExitStatus.SUCCESS:
+            fail("OCP layer", f"{label} ended {status}")
+        return backend, shapes, stats
+
+    # Per-step timesteps fold into the stage: m = 4, and stage 0 holds x₀
+    # beside its dynamics rows, p = 4.
+    per_step = double_integrator.min_time_problem(PER_STEP_N, TimestepMethod.VARIABLE)
+    backend, shapes, stats = solve_path(
+        f"minimum-time double integrator N={PER_STEP_N} (VARIABLE; the JAX package on a CPU: "
+        f"{PER_STEP_JAX_ITERATIONS} iterations)", per_step)
+    per_step_total = float(per_step.dt().value()[0, :PER_STEP_N].sum())
+    print(f"  total time {per_step_total:.10f} s", flush=True)
+    if not abs(per_step_total - 2.0) <= 2e-2:
+        fail("OCP layer", f"per-step minimum time {per_step_total} s, not 2 s")
+    if not shapes.get(("factor", 4, PER_STEP_N + 1, 8)):
+        fail("OCP layer", f"per-step dt: no K1 launch at (4, {PER_STEP_N + 1}, 8): {shapes}")
+
+    colloc = OCP(1, 1, COLLOCATION_T / COLLOCATION_N, COLLOCATION_N, lambda x, u: -x + u,
+                 DynamicsType.EXPLICIT_ODE, TimestepMethod.FIXED,
+                 TranscriptionMethod.DIRECT_COLLOCATION)
+    colloc.constrain_initial_state(0.0)
+    colloc.set_lower_input_bound(-12)
+    colloc.set_upper_input_bound(12)
+    colloc.minimize(((10.0 - colloc.X()) ** 2).sum())
+    backend, shapes, stats = solve_path(f"direct collocation N={COLLOCATION_N}", colloc)
+    cx, cu = colloc.X().value()[0], colloc.U().value()[0]
+    h = COLLOCATION_T / COLLOCATION_N
+    xdot0, xdot1 = -cx[:-1] + cu[:-1], -cx[1:] + cu[1:]
+    xdot_c = -3.0 / (2.0 * h) * (cx[:-1] - cx[1:]) - 0.25 * (xdot0 + xdot1)
+    x_c = 0.5 * (cx[:-1] + cx[1:]) + h / 8.0 * (xdot0 - xdot1)
+    defect = float(np.abs(-x_c + 0.5 * (cu[:-1] + cu[1:]) - xdot_c).max())
+    print(f"  x_0 {cx[0]:.3e}, x_N {cx[-1]:.6f}, max |u| {np.abs(cu).max():.12f}, "
+          f"Hermite–Simpson defect {defect:.3e}", flush=True)
+    if not (abs(cx[0]) <= 1e-8 and abs(cx[-1] - 10.0) <= 0.5
+            and np.abs(cu).max() <= 12.0 + 1e-9 and defect <= 1e-8):
+        fail("OCP layer", f"collocation: x_0 {cx[0]}, x_N {cx[-1]}, max |u| "
+             f"{np.abs(cu).max()}, defect {defect}")
+    if not any(k == "factor" and K == COLLOCATION_N + 1 for k, _b, K, _w in shapes):
+        fail("OCP layer", f"collocation: no K1 launch at K={COLLOCATION_N + 1}: {shapes}")
+
+    dd, DDX, DDU = differential_drive.differential_drive_problem(N=40, total_time=4.0)
+    solve_path("differential drive N=40", dd)
+    ddx, ddu = DDX.value(), DDU.value()
+    dd_oracle = max(
+        float(np.abs(ddx[:, k + 1] - rk4_numpy(
+            lambda x, u: differential_drive.dynamics_numpy(x, u), ddx[:, k : k + 1],
+            ddu[:, k : k + 1], 0.1).ravel()).max())
+        for k in range(40)
+    )
+    print(f"  x_0 error {np.abs(ddx[:, 0]).max():.3e}, x_N error "
+          f"{np.abs(ddx[:, 40] - [1.0, 1.0, 0.0, 0.0, 0.0]).max():.3e}, RK4 oracle {dd_oracle:.3e}",
+          flush=True)
+    if not (np.abs(ddx[:, 0]).max() <= 1e-8
+            and np.abs(ddx[:, 40] - [1.0, 1.0, 0.0, 0.0, 0.0]).max() <= 1e-7
+            and dd_oracle <= 1e-7):
+        fail("OCP layer", "differential drive misses x_0, x_N or the RK4 oracle")
+
+    di, DIX, DIU = double_integrator.double_integrator_problem(N=70, total_time=3.5)
+    solve_path("double integrator N=70", di)
+    dix, diu, dt_di = DIX.value(), DIU.value(), 3.5 / 70
+    di_dyn = max(
+        float(np.abs(dix[0, 1:] - (dix[0, :-1] + dix[1, :-1] * dt_di
+                                   + 0.5 * diu[0, :70] * dt_di * dt_di)).max()),
+        float(np.abs(dix[1, 1:] - (dix[1, :-1] + diu[0, :70] * dt_di)).max()),
+    )
+    print(f"  x_N {dix[:, 70]}, kinematics residual {di_dyn:.3e}", flush=True)
+    if not (np.abs(dix[:, 70] - [2.0, 0.0]).max() <= 1e-8 and di_dyn <= 1e-8
+            and np.abs(dix[1]).max() <= 1.0 + 1e-9 and np.abs(diu[0, :70]).max() <= 1.0 + 1e-9):
+        fail("OCP layer", "double integrator misses x_N, the kinematics or a limit")
+
+    shoot = OCP(1, 1, 0.1, 10, lambda x, u: -x + u, DynamicsType.EXPLICIT_ODE,
+                TimestepMethod.FIXED, TranscriptionMethod.SINGLE_SHOOTING)
+    shoot.set_lower_input_bound(-12)
+    shoot.set_upper_input_bound(12)
+    shoot.minimize(((10.0 - shoot.X()) ** 2).sum())
+    backend, _shapes, _stats = solve_path("single shooting N=10", shoot)
+    x_end = float(shoot.X().value(0, 10))
+    print(f"  x(1 s) {x_end:.6f} against 12(1 − e⁻¹) = {12.0 * (1.0 - math.exp(-1.0)):.6f}",
+          flush=True)
+    if type(backend).__name__ != "DenseBackend" or not abs(
+            x_end - 12.0 * (1.0 - math.exp(-1.0))) <= 0.2:
+        fail("OCP layer", f"single shooting: {type(backend).__name__}, x(1 s) = {x_end}")
+    print(f"OCP layer phase: {time.monotonic() - t_phase:.1f} s", flush=True)
+
     # -- results ----------------------------------------------------------
     path_shapes = (collections.Counter(fly_shapes) + collections.Counter(fr_shapes)
-                   + collections.Counter(sqp_shapes))
+                   + collections.Counter(sqp_shapes) + collections.Counter(mt_shapes)
+                   + rest_shapes)
     fly_long = long[4, FLYWHEEL_N + 1, 4]
 
     def long_entry(kind, replaces):
@@ -684,6 +889,10 @@ def main() -> None:
                 "plain_ms": e[f"{kind}_plain_ms"],
                 "bound_ms": e[f"{kind}_bound_ms"], "bound_by": e[f"{kind}_bound_by"],
             })
+        if kind == "solve":
+            # The border's batched right-hand sides; (4, 5001, 4, 1) is the
+            # minimum-time flywheel's T⁻¹·col.
+            shapes += list(border.values())
         return {
             "name": f"banded_{kind}_long",
             "route": "cuda",

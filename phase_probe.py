@@ -8,6 +8,7 @@ Run from the repository root on a machine with a CUDA card:
     python3 phase_probe.py --problem restoration --N 2000
     python3 phase_probe.py --problem flywheel_sqp --N 5000 --warm 1
     python3 phase_probe.py --problem flywheel_dense --N 1000
+    python3 phase_probe.py --problem flywheel_min_time --N 5000
     python3 phase_probe.py --device cpu --N 10 --timed 5 --profiled 3
 
 One solve through `Problem.solve`, run to its end, with the parent's
@@ -34,7 +35,11 @@ entries with their time and iterations are reported as well.
 
 `flywheel_sqp` is the flywheel without input bounds (SQP on the banded
 backend), `flywheel_dense` its plain-Problem form with bounds (the dense
-interior-point method). `--problem restoration` runs feasibility restoration alone, from the
+interior-point method), `flywheel_min_time` its minimum-time spin-up with
+one shared timestep (the banded backend with its border column); there
+`factor` also reports the border's share, `_border_schur` (the K2 solves
+of T⁻¹·col on the ladder and the border Schur complement), timed inside
+it. `--problem restoration` runs feasibility restoration alone, from the
 strongly infeasible cart-pole iterate that `chip_smoke.py` uses, with
 every restoration iteration in the timed window (no profiled window).
 """
@@ -54,7 +59,11 @@ from torch.autograd import DeviceType
 import sleipnir_tpu_torch.optimization.problem as problem_module
 from sleipnir_tpu_torch.autodiff.vectorize import BlockCompiler
 from sleipnir_tpu_torch.models.cart_pole import cart_pole_problem
-from sleipnir_tpu_torch.models.flywheel import flywheel_problem, flywheel_unbounded_problem
+from sleipnir_tpu_torch.models.flywheel import (
+    flywheel_min_time_problem,
+    flywheel_problem,
+    flywheel_unbounded_problem,
+)
 from sleipnir_tpu_torch.optimization.solver.kkt_backend import DenseBackend
 from sleipnir_tpu_torch.optimization.solver.kkt_banded import BandedBackend
 
@@ -64,11 +73,15 @@ PHASES = {
     BlockCompiler: ("f", "c_e", "c_i"),
     problem_module: ("restore",),
 }
+#: Phases timed inside another phase, reported as a part of it: name ->
+#: the outer phase.
+INNER_PHASES = {BandedBackend: {"_border_schur": "factor"}}
 PROBLEMS = {
     "cart_pole": cart_pole_problem,
     "flywheel": flywheel_problem,
     "flywheel_sqp": flywheel_unbounded_problem,
     "flywheel_dense": functools.partial(flywheel_problem, fast=False),
+    "flywheel_min_time": lambda N, total_time: flywheel_min_time_problem(N=N),
 }
 
 
@@ -89,21 +102,23 @@ class Probe:
             + ([torch.profiler.ProfilerActivity.CUDA] if device.type == "cuda" else [])
         )
 
-    def wrap(self, owner, name: str) -> None:
+    def wrap(self, owner, name: str, nested: bool = False) -> None:
+        """Time `owner.name` in the timed window: outside any other phase,
+        or (`nested`) inside one as a part of it."""
         inner = getattr(owner, name)
 
         @functools.wraps(inner)
         def timed(*args, **kwargs):
-            if self.window != 1 or self.depth:
+            if self.window != 1 or (self.depth and not nested):
                 return inner(*args, **kwargs)
             self.sync()
-            self.depth += 1
+            self.depth += 0 if nested else 1
             t0 = time.perf_counter()
             try:
                 out = inner(*args, **kwargs)
                 self.sync()
             finally:
-                self.depth -= 1
+                self.depth -= 0 if nested else 1
             self.seconds[name] += time.perf_counter() - t0
             self.calls[name] += 1
             return out
@@ -160,10 +175,20 @@ def report_timed(probe: Probe, iterations: int) -> None:
     per_it = 1e3 / iters
     print(f"timed {iters} iterations from iteration {probe.marks[1][0]}: {seconds:.3f} s, "
           f"{seconds * per_it:.1f} ms/iteration", flush=True)
+    inner = {name: outer for names in INNER_PHASES.values() for name, outer in names.items()}
+
+    def line(label, s, calls):
+        print(f"  {label:14s} {s * per_it:9.2f} ms/iteration  {100 * s / seconds:5.1f}%  "
+              f"{calls:4d} calls", flush=True)
+
     for name, s in probe.seconds.most_common():
-        print(f"  {name:14s} {s * per_it:9.2f} ms/iteration  {100 * s / seconds:5.1f}%  "
-              f"{probe.calls[name]:4d} calls", flush=True)
-    rest = seconds - sum(probe.seconds.values())
+        if name in inner:
+            continue
+        line(name, s, probe.calls[name])
+        for part, outer in inner.items():
+            if outer == name and part in probe.seconds:
+                line(f"  of which {part}", probe.seconds[part], probe.calls[part])
+    rest = seconds - sum(s for name, s in probe.seconds.items() if name not in inner)
     print(f"  {'(rest)':14s} {rest * per_it:9.2f} ms/iteration  "
           f"{100 * rest / seconds:5.1f}%", flush=True)
 
@@ -215,6 +240,9 @@ def main() -> None:
     for owner, names in PHASES.items():
         for name in names:
             probe.wrap(owner, name)
+    for owner, names in INNER_PHASES.items():
+        for name in names:
+            probe.wrap(owner, name, nested=True)
     run_solver = problem_module.run_solver
 
     def run_solver_with_hook(state, step, options, **kwargs):

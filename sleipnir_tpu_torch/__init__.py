@@ -10,9 +10,12 @@ global torch setting. The solve device comes from `Options(device=...)`,
 "cuda" by default.
 
 The port covers those solvers on OCP stage structure and without it,
-with banded and dense feasibility restoration (the cart-pole swing-up
-and both flywheel forms at their full sizes); ROADMAP.md lists what is
-still to port.
+with banded and dense feasibility restoration, and the whole OCP layer:
+fixed and variable timesteps (a shared timestep is the banded backend's
+border column), direct transcription, direct collocation and single
+shooting, over dynamics that run on tensors or only on the DSL. Models:
+cart-pole, flywheel, differential drive and double integrator
+(`sleipnir_tpu_torch.models`). ROADMAP.md lists what is still to port.
 """
 
 from sleipnir_tpu_torch.autodiff import (

@@ -20,10 +20,6 @@ from sleipnir_tpu_torch.optimization.solver.util.filter import FilterState
 #: Solver state fields the port keeps as host integers.
 _HOST_INT_FIELDS = ("full_step_rejected_counter", "iterations", "status", "infeas_streak")
 
-#: JAX BandedDerivs fields that hold the arrowhead border, which the port
-#: does not carry; they must be empty.
-_BORDER_FIELDS = ("Hb", "Hbb", "Aeb", "Aib")
-
 
 def _tensor(a, device) -> torch.Tensor:
     a = np.array(a)  # a writable copy: arrays from JAX are read-only
@@ -54,13 +50,8 @@ def state_from_numpy(state_cls, fields: Mapping, device):
     `newton.NewtonState`) from the fields of the JAX package's state of
     the same name turned into numpy, as `ipm_state_from_numpy` takes them.
     The derivatives are dense (`DenseDerivs`) when they hold `H`, else
-    banded."""
+    banded, border fields (`Hb`, `Hbb`, `Aeb`, `Aib`) included."""
     derivs = fields["derivs"]
-    for name in _BORDER_FIELDS:
-        if name in derivs and np.asarray(derivs[name]).size:
-            raise NotImplementedError(
-                "the arrowhead border is not ported yet (ROADMAP queue 1 item 11)"
-            )
     derivs_cls = DenseDerivs if "H" in derivs else BandedDerivs
     values = {}
     for name in state_cls._fields:

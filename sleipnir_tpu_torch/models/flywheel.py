@@ -7,7 +7,9 @@ dynamics x₊ = A x + B u with A = exp(−dt), B = 1 − exp(−dt), input bound
 ±12 V, quadratic tracking cost to r = 10 rad/s. Its stage blocks on the
 banded backend are 4 wide: one state, one input and two equality slots,
 since stage 0 holds x₀ = 0 beside its dynamics row (as in the JAX
-package).
+package). Also the minimum-time spin-up of the JAX package's
+tests/solver/test_border_backend.py, whose shared timestep is the banded
+backend's border column.
 """
 
 from __future__ import annotations
@@ -96,6 +98,39 @@ def flywheel_unbounded_problem(N: int = 1000, total_time: float = 5.0):
     err = 10.0 - ocp.X()
     ocp.minimize((err**2).sum())
     return ocp, ocp.X(), ocp.U()
+
+
+def flywheel_min_time_problem(N: int = 1000, target: float = 50.0):
+    """Spin the flywheel (ẋ = −x/5 + 2u, |u| ≤ 12) up from rest to
+    `target` rad/s in minimum time, the timestep one shared decision
+    variable in [1e-4, 1] s (`VARIABLE_SINGLE`: the banded backend's
+    border column). The JAX package's
+    tests/solver/test_border_backend.py:85-121. The optimum rides u = 12
+    the whole way: N·dt = −5·ln(1 − target/120) (`min_time_optimum`).
+    Returns (ocp, X, U)."""
+
+    def ode(x, u):
+        # dx/dt = -x/5 + 2u (reference benchmarks/scalability/flywheel)
+        return (-x[0, 0] / 5.0 + 2.0 * u[0, 0]).reshape(1, 1)
+
+    ocp = OCP(
+        1, 1, 0.01, N, ode, DynamicsType.EXPLICIT_ODE, TimestepMethod.VARIABLE_SINGLE,
+        TranscriptionMethod.DIRECT_TRANSCRIPTION,
+    )
+    ocp.constrain_initial_state(np.array([[0.0]]))
+    ocp.constrain_final_state(np.array([[target]]))
+    ocp.set_lower_input_bound(-12.0)
+    ocp.set_upper_input_bound(12.0)
+    ocp.set_min_timestep(1e-4)
+    ocp.set_max_timestep(1.0)
+    ocp.minimize(ocp.dt()[0, 0] * N)
+    return ocp, ocp.X(), ocp.U()
+
+
+def min_time_optimum(target: float = 50.0) -> float:
+    """The minimum total time of `flywheel_min_time_problem`: the steady
+    state at u = 12 is 120 rad/s, so 120(1 − e^(−T/5)) = target."""
+    return -5.0 * math.log(1.0 - target / 120.0)
 
 
 def oracle_failures(Xv, Uv, total_time: float = 5.0) -> list[str]:

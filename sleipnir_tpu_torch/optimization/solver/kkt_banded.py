@@ -1,7 +1,7 @@
 """Block-tridiagonal (banded) KKT backend for direct-transcription OCPs.
 
 Port of `sleipnir_tpu/optimization/solver/kkt_banded.py` without the
-arrowhead border, the device mesh and the TPU-only factorization variants.
+device mesh and the TPU-only factorization variants.
 
 Variables are ordered by stage zₖ = (xₖ, uₖ); equality rows are assigned
 to the stage they are anchored at, padded to a uniform count per stage
@@ -15,6 +15,13 @@ with *colored* probes, all vmapped with `torch.func.vmap` on every device:
   - Aₑ: 2·m JVPs of cₑ (adjacent stages alias-free under mod-2 coloring),
   - Lagrangian Hessian: 3·m HVPs (mod-3 coloring separates k−1/k/k+1),
   - Aᵢ: m JVPs (each inequality row touches a single stage).
+
+Border (arrowhead) variables, such as the shared timestep of a
+minimum-time OCP, couple to every stage. They take one exact probe each,
+batched with the colored probes, and enter the factorization through a
+Schur complement on the border: the banded factor solves T⁻¹·col for
+all border columns of all ladder candidates in one K2 launch, so the
+system still factors in O(N·w³).
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ from sleipnir_tpu_torch.ops.block_tridiag import (
     BlockTridiagFactor,
     block_tridiag_inertia,
 )
+from sleipnir_tpu_torch.ops.ldlt import ldlt_unblocked
 from sleipnir_tpu_torch.optimization.solver.kkt_backend import (
     RegLoopResult,
     regularization_loop,
@@ -76,6 +84,9 @@ def _equilibrate(D: torch.Tensor, E: torch.Tensor, rounds: int = 2):
     return D, E, s
 
 
+_EMPTY_BORDER = np.zeros(0, dtype=np.int64)
+
+
 class StageStructure(NamedTuple):
     """Static stage metadata (host-side numpy)."""
 
@@ -88,22 +99,40 @@ class StageStructure(NamedTuple):
     ci_stage: np.ndarray  # (mi,)
     ci_slot: np.ndarray  # (mi,)
     ineq_pad: int  # q: max inequality rows per stage
+    #: Flat indices of BORDER decision variables: columns that couple to
+    #: every stage (the shared dt of a TimestepMethod.VARIABLE_SINGLE
+    #: minimum-time OCP, reference ocp.hpp:129-134). Inequality rows that
+    #: touch only border variables sit in any stage's slot with an
+    #: all-zero staged row; their entries live in the border columns.
+    border: np.ndarray = _EMPTY_BORDER
 
 
 class BandedDerivs(NamedTuple):
-    """Per-stage scaled derivative blocks."""
+    """Per-stage scaled derivative blocks and the dense border columns."""
 
     Hd: torch.Tensor  # (K, m, m) stage-diagonal Lagrangian Hessian
     Hc: torch.Tensor  # (K-1, m, m) coupling H[k+1, k]
     Aloc: torch.Tensor  # (K, p, m) eq rows of stage k wrt z_k
     Anext: torch.Tensor  # (K, p, m) eq rows of stage k wrt z_{k+1} (last 0)
     Ailoc: torch.Tensor  # (K, q, m) ineq rows of stage k wrt z_k
+    Hb: torch.Tensor  # (nb, K, m) Hessian border columns against staged vars
+    Hbb: torch.Tensor  # (nb, nb) border-border Hessian block
+    Aeb: torch.Tensor  # (me, nb) eq-row border entries
+    Aib: torch.Tensor  # (mi, nb) ineq-row border entries
 
 
 class BandedFactor(NamedTuple):
     fac: BlockTridiagFactor  # factor of S M S, batch axis of size 1
     #: Ruiz scale (K, w): solves are x = S · solve(fac, S · b).
     s: torch.Tensor
+    #: The border: assembled border columns in staged layout (nb, K, w),
+    #: T⁻¹·col (nb, K, w), the δ-free border block e₀ (nb, nb) and the
+    #: LDLᵀ (L, d) of the border Schur complement e₀ + δI − colᵀT⁻¹col.
+    col: torch.Tensor
+    Xcols: torch.Tensor
+    e0: torch.Tensor
+    Sb_L: torch.Tensor
+    Sb_d: torch.Tensor
     delta: torch.Tensor
     gamma: torch.Tensor
     ok: bool
@@ -132,16 +161,22 @@ class BandedBackend:
         self.f_raw, self.ce_raw, self.ci_raw = f_raw, ce_raw, ci_raw
 
         K, m, p, q = st.num_stages, st.stage_width, st.eq_pad, st.ineq_pad
-        if n != K * m:
-            raise ValueError(f"n = {n} is not K·m = {K}·{m}")
-        self.K, self.m, self.p, self.q = K, m, p, q
+        border = np.asarray(st.border, dtype=np.int64).reshape(-1)
+        nb = border.shape[0]
+        if n != K * m + nb:
+            raise ValueError(f"n = {n} is not K·m + nb = {K}·{m} + {nb}")
+        self.K, self.m, self.p, self.q, self.nb = K, m, p, q, nb
         self.w = m + p
 
         def dev(a, dtype=torch.int64):
             return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
 
-        # Colored probe matrices (static)
+        # Colored probe matrices (static), each batch followed by one
+        # exact probe per border variable: the probes of a kind run as one
+        # vmapped call.
         staged = st.var_perm.reshape(K, m)
+        probes_b = np.zeros((nb, n))
+        probes_b[np.arange(nb), border] = 1.0
         probes_e = np.zeros((2 * m, n))
         for c in range(2):
             for j in range(m):
@@ -153,11 +188,12 @@ class BandedBackend:
         probes_i = np.zeros((m, n))
         for j in range(m):
             probes_i[j, staged[:, j]] = 1.0
-        self._probes_e = dev(probes_e, _F64)
-        self._probes_h = dev(probes_h, _F64)
-        self._probes_i = dev(probes_i, _F64)
+        self._probes_e = dev(np.concatenate([probes_e, probes_b]), _F64)
+        self._probes_h = dev(np.concatenate([probes_h, probes_b]), _F64)
+        self._probes_i = dev(np.concatenate([probes_i, probes_b]), _F64)
 
         # Gather/scatter indices
+        self._border_pos = dev(border)
         self._var_perm = dev(st.var_perm)
         self._kmod3 = dev(np.arange(K) % 3)
         self._k_idx = dev(np.arange(K))
@@ -218,7 +254,9 @@ class BandedBackend:
             return out
 
         grad_lag = grad(lag)
-        Hv = vmap(lambda v: jvp(grad_lag, (x,), (v,))[1])(self._probes_h)  # (3m, n)
+        nb = self.nb
+        Hv_all = vmap(lambda v: jvp(grad_lag, (x,), (v,))[1])(self._probes_h)
+        Hv, Hvb = Hv_all[: 3 * m], Hv_all[3 * m :]  # (3m, n), (nb, n)
         HvS = Hv[:, self._var_perm].reshape(3, m, K, m)
         # Hd[k][i, j] = HvS[k%3, j, k, i]
         Hd = HvS[self._kmod3, :, self._k_idx, :].transpose(1, 2)
@@ -227,28 +265,39 @@ class BandedBackend:
             Hc = HvS[self._kmod3[:-1], :, self._k_idx[:-1] + 1, :].transpose(1, 2)
         else:
             Hc = self._zeros(0, m, m)
+        Hb = Hvb[:, self._var_perm].reshape(nb, K, m)
+        Hbb = Hvb[:, self._border_pos]
 
         if self.me > 0:
-            Ue = vmap(
+            Ue_all = vmap(
                 lambda v: jvp(lambda xv: sc.c_e * self.ce_raw(xv, params), (x,), (v,))[1]
             )(self._probes_e)
-            rows_loc, rows_next = self._eq_rows(Ue)
+            rows_loc, rows_next = self._eq_rows(Ue_all[: 2 * m])
             idx = (self._ce_stage, self._ce_slot)
             Aloc = self._zeros(K, p, m).index_put(idx, rows_loc)
             Anext = self._zeros(K, p, m).index_put(idx, rows_next)
+            Aeb = Ue_all[2 * m :].T
         else:
             Aloc = self._zeros(K, p, m)
             Anext = self._zeros(K, p, m)
+            Aeb = self._zeros(0, nb)
 
         if self.mi > 0:
-            Ui = vmap(
+            Ui_all = vmap(
                 lambda v: jvp(lambda xv: sc.c_i * self.ci_raw(xv, params), (x,), (v,))[1]
             )(self._probes_i)
-            Ailoc = self._zeros(K, q, m).index_put((self._ci_stage, self._ci_slot), Ui.T)
+            Ailoc = self._zeros(K, q, m).index_put(
+                (self._ci_stage, self._ci_slot), Ui_all[:m].T
+            )
+            Aib = Ui_all[m:].T
         else:
             Ailoc = self._zeros(K, q, m)
+            Aib = self._zeros(0, nb)
 
-        return BandedDerivs(Hd=Hd, Hc=Hc, Aloc=Aloc, Anext=Anext, Ailoc=Ailoc)
+        return BandedDerivs(
+            Hd=Hd, Hc=Hc, Aloc=Aloc, Anext=Anext, Ailoc=Ailoc,
+            Hb=Hb, Hbb=Hbb, Aeb=Aeb, Aib=Aib,
+        )
 
     def setup_rows(self, x0: np.ndarray, params: np.ndarray):
         """Per-row Jacobian data at x0 for setup (scaling and bound
@@ -256,19 +305,24 @@ class BandedBackend:
         dense (m, n) matrix (reference problem_scaling.hpp:58-110).
 
         Runs on the solve device. Returns numpy arrays (unscaled):
-          ce_rows_loc (me, m), ce_rows_next (me, m): equality row entries
-            wrt the anchor stage's and next stage's variables;
-          ci_rows (mi, m): inequality row entries wrt the row's stage;
-          ci_cols (mi, m): global column index of each ci_rows entry.
+          ce_rows_loc (me, m + nb), ce_rows_next (me, m): equality row
+            entries wrt the anchor stage's variables (then the border's)
+            and the next stage's;
+          ci_rows (mi, m + nb): inequality row entries wrt the row's stage
+            and the border;
+          ci_cols (mi, m + nb): global column index of each ci_rows entry.
         """
         x = torch.as_tensor(x0, dtype=_F64, device=self.device)
         prm = torch.as_tensor(params, dtype=_F64, device=self.device)
-        m = self.m
+        m, nb = self.m, self.nb
         if self.me > 0:
             Ue = vmap(lambda v: jvp(lambda xv: self.ce_raw(xv, prm), (x,), (v,))[1])(
                 self._probes_e
             )
-            ce_rows_loc, ce_rows_next = (a.cpu().numpy() for a in self._eq_rows(Ue))
+            ce_rows_loc, ce_rows_next = (a.cpu().numpy() for a in self._eq_rows(Ue[: 2 * m]))
+            # The border entries join the row so that its ∞-norm (scaling)
+            # sees the whole row.
+            ce_rows_loc = np.concatenate([ce_rows_loc, Ue[2 * m :].T.cpu().numpy()], axis=1)
         else:
             ce_rows_loc = np.zeros((0, m))
             ce_rows_next = np.zeros((0, m))
@@ -278,7 +332,10 @@ class BandedBackend:
             )
             ci_rows = Ui.T.cpu().numpy()
             staged_cols = np.asarray(self.structure.var_perm).reshape(self.K, m)
-            ci_cols = staged_cols[np.asarray(self.structure.ci_stage)]
+            ci_cols = np.concatenate([
+                staged_cols[np.asarray(self.structure.ci_stage)],
+                np.broadcast_to(np.asarray(self.structure.border, np.int64), (self.mi, nb)),
+            ], axis=1)
         else:
             ci_rows = np.zeros((0, m))
             ci_cols = np.zeros((0, m), dtype=np.int64)
@@ -295,7 +352,10 @@ class BandedBackend:
         vs = self._stage_eq(v)  # (K, p)
         out = torch.einsum("kpm,kp->km", d.Aloc, vs)
         out[1:] += torch.einsum("kpm,kp->km", d.Anext, vs)[:-1]
-        return self._unstage_vec(out)
+        res = self._unstage_vec(out)
+        if self.nb > 0:
+            res = res.index_add(0, self._border_pos, d.Aeb.T @ v)
+        return res
 
     def Ae(self, d: BandedDerivs, u: torch.Tensor) -> torch.Tensor:
         us = self._stage_vec(u)  # (K, m)
@@ -303,18 +363,27 @@ class BandedBackend:
         r = torch.einsum("kpm,km->kp", d.Aloc, us) + torch.einsum(
             "kpm,km->kp", d.Anext, u_next
         )
-        return r[self._ce_stage, self._ce_slot]
+        out = r[self._ce_stage, self._ce_slot]
+        if self.nb > 0:
+            out = out + d.Aeb @ u[self._border_pos]
+        return out
 
     def AiT(self, d: BandedDerivs, v: torch.Tensor) -> torch.Tensor:
         if self.mi == 0:
             return self._zeros(self.n)
         vs = self._stage_ineq(v)
-        return self._unstage_vec(torch.einsum("kqm,kq->km", d.Ailoc, vs))
+        res = self._unstage_vec(torch.einsum("kqm,kq->km", d.Ailoc, vs))
+        if self.nb > 0:
+            res = res.index_add(0, self._border_pos, d.Aib.T @ v)
+        return res
 
     def Ai(self, d: BandedDerivs, u: torch.Tensor) -> torch.Tensor:
         us = self._stage_vec(u)
         r = torch.einsum("kqm,km->kq", d.Ailoc, us)
-        return r[self._ci_stage, self._ci_slot]
+        out = r[self._ci_stage, self._ci_slot]
+        if self.nb > 0:
+            out = out + d.Aib @ u[self._border_pos]
+        return out
 
     # -- factorization -----------------------------------------------------
 
@@ -343,6 +412,9 @@ class BandedBackend:
         return D, E
 
     def factor(self, d: BandedDerivs, sigma, prev_delta, gamma_min) -> BandedFactor:
+        nb = self.nb
+        col0, e0 = self._assemble_border(d, sigma)
+
         def factor_with(deltas, gammas):
             D, E = self.assemble_staged(d, sigma, deltas, gammas)
             E = E.expand(deltas.shape[0], *E.shape)
@@ -350,31 +422,102 @@ class BandedBackend:
             fac = cuda_banded.banded_factor(Ds.contiguous(), Es.contiguous())
             pos, neg, zero = block_tridiag_inertia(fac, EPS_INERTIA)
             piv = fac.d.flatten(1)
+            if nb > 0:
+                # The border Schur complement's pivots count toward the
+                # inertia and the gates like the band's, on the device.
+                X, Lb, db = self._border_schur(d, sigma, fac, s_eq, col0, e0, deltas, gammas)
+                pos = pos + (db > EPS_INERTIA).sum(dim=1)
+                neg = neg + (db < -EPS_INERTIA).sum(dim=1)
+                zero = zero + nb - (db > EPS_INERTIA).sum(dim=1) - (db < -EPS_INERTIA).sum(dim=1)
+                piv = torch.cat([piv, db], dim=1)
+            else:
+                B = deltas.shape[0]
+                X = self._zeros(B, 0, self.K, self.w)
+                Lb, db = self._zeros(B, 0, 0), self._zeros(B, 0)
             small_any = (torch.abs(piv) < SMALL_PIVOT).any(dim=1)
             finite = torch.isfinite(piv).all(dim=1)
             small = (deltas == 0.0) & (gammas == 0.0) & small_any
-            return (fac, s_eq), pos, neg, zero, ~finite | small
+            return (fac, s_eq, X, Lb, db), pos, neg, zero, ~finite | small
 
         out: RegLoopResult = regularization_loop(
             factor_with, self.n, self.K * self.p, prev_delta, gamma_min, self.syncs
         )
-        fac, s_eq = out.fac
-        return BandedFactor(fac=fac, s=s_eq[0], delta=out.delta, gamma=out.gamma, ok=out.ok)
+        fac, s_eq, X, Lb, db = out.fac
+        return BandedFactor(
+            fac=fac, s=s_eq[0], col=col0, Xcols=X[0], e0=e0, Sb_L=Lb[0], Sb_d=db[0],
+            delta=out.delta, gamma=out.gamma, ok=out.ok,
+        )
+
+    def _border_schur(self, d, sigma, fac, s_eq, col0, e0, deltas, gammas):
+        """T⁻¹·col for every border column of every ladder candidate, with
+        one refinement pass, and the LDLᵀ of the border Schur complement
+        S_b = e₀ + δI − colᵀT⁻¹col: X (B, nb, K, w), L (B, nb, nb), d
+        (B, nb). Each solve is one K2 launch over all B candidates with
+        the nb columns as its right-hand sides."""
+
+        def tsolve(rhs):  # (B, nb, K, w) -> T⁻¹ rhs, per candidate
+            b = (s_eq[:, None] * rhs).permute(0, 2, 3, 1).contiguous()
+            return s_eq[:, None] * cuda_banded.banded_solve(fac, b).permute(0, 3, 1, 2)
+
+        cols = col0.expand(deltas.shape[0], *col0.shape)
+        X = tsolve(cols)
+        X = X + tsolve(cols - self._kkt_matvec_staged(d, sigma, deltas[:, None], gammas[:, None], X))
+        eye = torch.eye(self.nb, dtype=_F64, device=self.device)
+        Sb = e0 + deltas[:, None, None] * eye - torch.einsum("akw,Bbkw->Bab", col0, X)
+        Lb, db = ldlt_unblocked(Sb)
+        return X, Lb, db
+
+    def _assemble_border(self, d: BandedDerivs, sigma):
+        """The border columns in staged layout (nb, K, w) and the δ-free
+        border block e₀ = H_bb + Σᵣ σᵣ a_b a_bᵀ (nb, nb)."""
+        K, m, w, nb = self.K, self.m, self.w, self.nb
+        col = self._zeros(nb, K, w)
+        if nb == 0:
+            return col, self._zeros(0, 0)
+        colm = d.Hb  # (nb, K, m)
+        e0 = d.Hbb
+        if self.mi > 0:
+            sig_st = self._stage_ineq(sigma)  # (K, q)
+            Aib_st = self._zeros(K, self.q, nb).index_put((self._ci_stage, self._ci_slot), d.Aib)
+            colm = colm + torch.einsum("kq,kqm,kqb->bkm", sig_st, d.Ailoc, Aib_st)
+            e0 = e0 + torch.einsum("r,ra,rb->ab", sigma, d.Aib, d.Aib)
+        col[:, :, :m] = colm
+        if self.me > 0:
+            col[:, self._ce_stage, m + self._ce_slot] = d.Aeb.T
+        return col, e0
 
     def _scaled_solve(self, fac: BandedFactor, b: torch.Tensor) -> torch.Tensor:
         """Solve the regularized staged system for b (K, w)."""
         return fac.s * cuda_banded.banded_solve(fac.fac, (fac.s * b)[None])[0]
 
-    def _staged_rhs(self, rhs_top, rhs_bottom) -> torch.Tensor:
-        """Flat rhs -> staged (K, w)."""
+    def _border_block_solve(self, fac: BandedFactor, r: torch.Tensor) -> torch.Tensor:
+        """Solve S_b v = r with the border Schur LDLᵀ ((nb,) rhs)."""
+        L = fac.Sb_L
+        y = torch.linalg.solve_triangular(L, r[:, None], upper=False)[:, 0]
+        y = y / torch.where(fac.Sb_d == 0.0, 1.0, fac.Sb_d)
+        return torch.linalg.solve_triangular(L.T, y[:, None], upper=True)[:, 0]
+
+    def _bordered_solve(self, fac: BandedFactor, b: torch.Tensor, b_b: torch.Tensor):
+        """Solve the whole arrowhead system given the factor: (staged
+        solution (K, w), border solution (nb,))."""
+        u0 = self._scaled_solve(fac, b)
+        if self.nb == 0:
+            return u0, b_b
+        v = self._border_block_solve(fac, b_b - torch.einsum("bkw,kw->b", fac.col, u0))
+        return u0 - torch.einsum("bkw,b->kw", fac.Xcols, v), v
+
+    def _staged_rhs(self, rhs_top, rhs_bottom):
+        """Flat rhs -> staged (K, w) and border (nb,) parts."""
         b = self._zeros(self.K, self.w)
         b[:, : self.m] = self._stage_vec(rhs_top)
         if self.me > 0:
             b[self._ce_stage, self.m + self._ce_slot] = rhs_bottom
-        return b
+        return b, rhs_top[self._border_pos]
 
-    def _unpack_solution(self, sol):
+    def _unpack_solution(self, sol, v_b):
         p_x = self._unstage_vec(sol[:, : self.m])
+        if self.nb > 0:
+            p_x[self._border_pos] = v_b
         p_y = (
             -sol[self._ce_stage, self.m + self._ce_slot]
             if self.me > 0
@@ -383,45 +526,55 @@ class BandedBackend:
         return p_x, p_y
 
     def solve(self, fac: BandedFactor, rhs_top, rhs_bottom):
-        return self._unpack_solution(self._scaled_solve(fac, self._staged_rhs(rhs_top, rhs_bottom)))
+        return self._unpack_solution(*self._bordered_solve(fac, *self._staged_rhs(rhs_top, rhs_bottom)))
 
     def _kkt_matvec_staged(self, d: BandedDerivs, sigma, delta, gamma, sol):
-        """Apply the regularized staged KKT matrix to sol (K, w): per-stage
-        diagonal [Hd + AᵢᵀΣAᵢ + δI, Alocᵀ; Aloc, diag(−γ | −1 pad)] with
-        sub-diagonal coupling [Hc, Anextᵀ; 0, 0]."""
+        """Apply the regularized staged KKT matrix (without the border) to
+        sol (..., K, w): per-stage diagonal [Hd + AᵢᵀΣAᵢ + δI, Alocᵀ;
+        Aloc, diag(−γ | −1 pad)] with sub-diagonal coupling [Hc, Anextᵀ;
+        0, 0]. δ and γ are scalars or broadcast over sol's leading axes."""
         m = self.m
-        u = sol[:, :m]  # (K, m)
-        v = sol[:, m:]  # (K, p)
-        top = torch.einsum("kij,kj->ki", d.Hd, u) + delta * u
+        if torch.is_tensor(delta) and delta.dim():
+            delta, gamma = delta[..., None, None], gamma[..., None, None]
+        u = sol[..., :m]  # (..., K, m)
+        v = sol[..., m:]  # (..., K, p)
+        top = torch.einsum("kij,...kj->...ki", d.Hd, u) + delta * u
         if self.K > 1:
-            top[1:] += torch.einsum("kij,kj->ki", d.Hc, u[:-1])
-            top[:-1] += torch.einsum("kji,kj->ki", d.Hc, u[1:])
+            top[..., 1:, :] += torch.einsum("kij,...kj->...ki", d.Hc, u[..., :-1, :])
+            top[..., :-1, :] += torch.einsum("kji,...kj->...ki", d.Hc, u[..., 1:, :])
         if self.mi > 0:
-            t = torch.einsum("kqm,km->kq", d.Ailoc, u) * self._stage_ineq(sigma)
-            top = top + torch.einsum("kqm,kq->km", d.Ailoc, t)
+            t = torch.einsum("kqm,...km->...kq", d.Ailoc, u) * self._stage_ineq(sigma)
+            top = top + torch.einsum("kqm,...kq->...km", d.Ailoc, t)
         # Aₑᵀ v (staged): stage-local rows plus next-stage coupling
-        top = top + torch.einsum("kpm,kp->km", d.Aloc, v)
+        top = top + torch.einsum("kpm,...kp->...km", d.Aloc, v)
         if self.K > 1:
-            top[1:] += torch.einsum("kpm,kp->km", d.Anext, v)[:-1]
+            top[..., 1:, :] += torch.einsum("kpm,...kp->...km", d.Anext, v)[..., :-1, :]
         # Aₑ u rows + regularization diagonal
-        u_next = torch.cat([u[1:], self._zeros(1, m)], dim=0)
-        bot = torch.einsum("kpm,km->kp", d.Aloc, u) + torch.einsum(
-            "kpm,km->kp", d.Anext, u_next
+        u_next = torch.cat([u[..., 1:, :], torch.zeros_like(u[..., :1, :])], dim=-2)
+        bot = torch.einsum("kpm,...km->...kp", d.Aloc, u) + torch.einsum(
+            "kpm,...km->...kp", d.Anext, u_next
         )
         bot = bot + torch.where(self._eq_slot_real, -gamma, -1.0) * v
-        return torch.cat([top, bot], dim=1)
+        return torch.cat([top, bot], dim=-1)
 
     def solve_refined(self, d: BandedDerivs, sigma, fac: BandedFactor, rhs_top,
                       rhs_bottom, iterations: int = 2):
         """Solve plus a fixed count of iterative-refinement passes against
-        the exact staged KKT matvec: the stage-ordered elimination needs it
-        for backward stability. Three solves per call in all."""
-        b = self._staged_rhs(rhs_top, rhs_bottom)
-        sol = self._scaled_solve(fac, b)
+        the exact KKT matvec, border included: the stage-ordered
+        elimination needs it for backward stability. Three solves per
+        call in all."""
+        b, b_b = self._staged_rhs(rhs_top, rhs_bottom)
+        sol, v_b = self._bordered_solve(fac, b, b_b)
         for _ in range(iterations):
             r = b - self._kkt_matvec_staged(d, sigma, fac.delta, fac.gamma, sol)
-            sol = sol + self._scaled_solve(fac, r)
-        return self._unpack_solution(sol)
+            r_b = b_b
+            if self.nb > 0:
+                r = r - torch.einsum("bkw,b->kw", fac.col, v_b)
+                r_b = (b_b - torch.einsum("bkw,kw->b", fac.col, sol) - fac.e0 @ v_b
+                       - fac.delta * v_b)
+            du, dv = self._bordered_solve(fac, r, r_b)
+            sol, v_b = sol + du, v_b + dv
+        return self._unpack_solution(sol, v_b)
 
     # -- observability -----------------------------------------------------
 
@@ -429,7 +582,9 @@ class BandedBackend:
         """Reconstruct dense H/A_e/A_i as numpy (callback path only)."""
         K, m, n, me, mi = self.K, self.m, self.n, self.me, self.mi
         Hd, Hc = d.Hd.cpu().numpy(), d.Hc.cpu().numpy()
-        stages = np.asarray(self.structure.var_perm).reshape(K, m)
+        perm = np.asarray(self.structure.var_perm)
+        stages = perm.reshape(K, m)
+        bp = np.asarray(self.structure.border, dtype=np.int64)
         H = np.zeros((n, n))
         for k in range(K):
             vk = stages[k]
@@ -438,6 +593,12 @@ class BandedBackend:
                 vk1 = stages[k + 1]
                 H[np.ix_(vk1, vk)] = Hc[k]
                 H[np.ix_(vk, vk1)] = Hc[k].T
+        if self.nb > 0:
+            Hb = d.Hb.cpu().numpy()  # (nb, K, m)
+            for bi in range(self.nb):
+                H[bp[bi], perm] = Hb[bi].reshape(-1)
+                H[perm, bp[bi]] = Hb[bi].reshape(-1)
+            H[np.ix_(bp, bp)] = d.Hbb.cpu().numpy()
         A_e = np.zeros((me, n))
         Aloc, Anext = d.Aloc.cpu().numpy(), d.Anext.cpu().numpy()
         for r in range(me):
@@ -445,9 +606,13 @@ class BandedBackend:
             A_e[r, stages[s_]] = Aloc[s_, sl]
             if s_ + 1 < K:
                 A_e[r, stages[s_ + 1]] = Anext[s_, sl]
+        if self.nb > 0 and me > 0:
+            A_e[:, bp] = d.Aeb.cpu().numpy()
         A_i = np.zeros((mi, n))
         Ailoc = d.Ailoc.cpu().numpy()
         for r in range(mi):
             s_, sl = self.structure.ci_stage[r], self.structure.ci_slot[r]
             A_i[r, stages[s_]] = Ailoc[s_, sl]
+        if self.nb > 0 and mi > 0:
+            A_i[:, bp] = d.Aib.cpu().numpy()
         return H, A_e, A_i

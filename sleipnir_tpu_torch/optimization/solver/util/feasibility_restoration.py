@@ -235,10 +235,13 @@ def _dense_jacobians(backend: BandedBackend, x, params, scaling):
     from the backend's banded Jacobian rows (its colored JVP probes)."""
     st = backend.structure
     ce_loc, ce_next, ci_rows, ci_cols = backend.setup_rows(x, _numpy(params))
-    stages = np.asarray(st.var_perm).reshape(st.num_stages, st.stage_width)
+    m = st.stage_width
+    stages = np.asarray(st.var_perm).reshape(st.num_stages, m)
+    border = np.asarray(st.border, dtype=np.int64)
     A_e = np.zeros((backend.me, backend.n))
     for r, k in enumerate(np.asarray(st.ce_stage)):
-        A_e[r, stages[k]] = ce_loc[r]
+        A_e[r, stages[k]] = ce_loc[r, :m]
+        A_e[r, border] = ce_loc[r, m:]  # the border columns follow the stage's
         if k + 1 < st.num_stages:
             A_e[r, stages[k + 1]] = ce_next[r]
     A_i = np.zeros((backend.mi, backend.n))
@@ -372,7 +375,8 @@ def _banded_fr_solver(parent, parent_state, options, parent_backend, x_r, s_r, D
     K, m, p, q = st.num_stages, st.stage_width, st.eq_pad, st.ineq_pad
     e2 = 2 * (p + q)  # relaxation slots per stage (incl. padded slots)
     m2 = m + e2
-    N2 = K * m2
+    nb = np.asarray(st.border).shape[0]
+    N2 = K * m2 + nb
     MI2 = mi + K * e2
 
     ce_stage = np.asarray(st.ce_stage)
@@ -415,11 +419,12 @@ def _banded_fr_solver(parent, parent_state, options, parent_backend, x_r, s_r, D
             top = top - xp[pi_t] + xp[ni_t]
         return torch.cat([top, xp[n:]])
 
-    # Stage structure of the augmented problem. The port's backend has no
-    # arrowhead border, and a FIXED-dt parent has no border column, so
-    # neither does the augmented problem.
+    # Stage structure of the augmented problem: the relaxation variables
+    # join their row's stage. A border (shared-dt) column of the parent
+    # stays a border of the augmented problem at the same flat position
+    # (< n), so the starting point [x_r; extras] carries it inside x_r.
     parent_staged = np.asarray(st.var_perm).reshape(K, m)
-    var_perm2 = np.empty(N2, dtype=np.int64)
+    var_perm2 = np.empty(K * m2, dtype=np.int64)
     for k in range(K):
         var_perm2[k * m2 : k * m2 + m] = parent_staged[k]
         var_perm2[k * m2 + m : (k + 1) * m2] = n + k * e2 + np.arange(e2)
@@ -433,6 +438,7 @@ def _banded_fr_solver(parent, parent_state, options, parent_backend, x_r, s_r, D
         ci_stage=np.concatenate([ci_stage, np.repeat(np.arange(K), e2)]).astype(np.int64),
         ci_slot=np.concatenate([ci_slot, np.tile(q + np.arange(e2), K)]).astype(np.int64),
         ineq_pad=q + e2,
+        border=np.asarray(st.border),
     )
     fr_backend = BandedBackend(
         fr_structure, fr_f_raw, fr_ce_raw, fr_ci_raw, N2, me, MI2, device,

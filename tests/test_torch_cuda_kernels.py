@@ -205,6 +205,27 @@ def test_kernels_match_twin_at_long_horizons(cuda_device, B, K, w, conditioned):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,K,w,r", [(4, 5001, 4, 1), (4, 101, 13, 2)])
+def test_batched_multi_rhs_solve_at_the_border_shapes(cuda_device, B, K, w, r):
+    """K2 over every ladder candidate with r right-hand sides each: the
+    shape of the arrowhead border's T⁻¹·col (the minimum-time flywheel at
+    N=5000 solves (4, 5001, 4) with its one border column), against the
+    plain solve on the same factor, on the kernel factor and on the plain
+    one, unrefined. One wrapper call launches it."""
+    D, E, b = _random_system(np.random.default_rng(B * K + w + r), B, K, w, r)
+    Dg, Eg, bg = banded_system_from_numpy(D, E, b, cuda_device)
+    fk = cuda_banded.banded_factor(Dg, Eg)
+    fp = tbt.block_tridiag_factor(Dg, Eg)
+    before = cuda_banded.LAUNCHES_BY_SHAPE["solve", B, K, w]
+    xk = cuda_banded.banded_solve(fk, bg)
+    torch.cuda.synchronize()
+    assert cuda_banded.LAUNCHES_BY_SHAPE["solve", B, K, w] == before + 1
+    assert xk.shape == (B, K, w, r)
+    assert _rel(xk, tbt.block_tridiag_solve(fk, bg)) <= 1e-10
+    assert _rel(cuda_banded.banded_solve(fp, bg), tbt.block_tridiag_solve(fp, bg)) <= 1e-10
+
+
+@pytest.mark.cuda
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     D, E, _ = _random_system(np.random.default_rng(0), 1, 5, 38, None)
     Dg, Eg, _ = banded_system_from_numpy(D, E, np.zeros((1, 5, 38)), cuda_device)

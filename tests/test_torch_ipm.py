@@ -106,8 +106,10 @@ def test_missing_cuda_raises_instead_of_falling_back():
 
 
 def test_paths_outside_the_slice_raise():
-    """Diagnostics printing (queue 1 item 1) and the OCP options of item 11
-    are not ported; problems without OCP structure now solve densely."""
+    """Diagnostics printing (queue 1 item 1) is not ported; problems
+    without OCP structure solve densely, and the OCP options of item 11
+    (variable timesteps, collocation) are ported: they build banded stage
+    structures, per-step dt in the stage and a shared dt as a border."""
     p = tslp.Problem()
     x = p.decision_variable()
     p.minimize(x**4 + x)
@@ -115,10 +117,12 @@ def test_paths_outside_the_slice_raise():
     with pytest.raises(NotImplementedError, match="item 1:"):
         p.solve(device="cpu", diagnostics=True)
     assert p.solve(device="cpu") == tslp.ExitStatus.SUCCESS
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tslp.OCP(2, 1, 0.1, 5, lambda x, u: x, timestep_method=tslp.TimestepMethod.VARIABLE)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tslp.OCP(
-            2, 1, 0.1, 5, lambda x, u: x,
-            transcription_method=tslp.TranscriptionMethod.DIRECT_COLLOCATION,
-        )
+    for kwargs, width, border in (
+        ({"timestep_method": tslp.TimestepMethod.VARIABLE}, 4, 0),
+        ({"timestep_method": tslp.TimestepMethod.VARIABLE_SINGLE}, 3, 1),
+        ({"transcription_method": tslp.TranscriptionMethod.DIRECT_COLLOCATION}, 3, 0),
+    ):
+        ocp = tslp.OCP(2, 1, 0.1, 5, lambda x, u: x, **kwargs)
+        ocp.minimize((ocp.U() ** 2).sum())
+        structure = ocp._stage_structure(ocp._compile())
+        assert (structure.stage_width, structure.border.shape[0]) == (width, border)
