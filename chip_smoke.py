@@ -49,13 +49,22 @@ Phases, each of which exits non-zero on failure:
      (4, 1001, 8)), direct collocation of ẋ = −x + u at N=5000 (the
      Hermite–Simpson defect recomputed in numpy), the differential drive
      at N=40 (RK4 oracle), the double integrator at N=70 and single
-     shooting at N=10 on the dense path.
+     shooting at N=10 on the dense path;
+ 12. the batched solve: cart-pole N=100 from 8 guesses as the lanes of one
+     `solve_ipm_batched` solve, timed from the guesses; every lane must
+     reach SUCCESS, the target state, the RK4 oracle and the JAX package's
+     cost, with K1 at (32, 101, 13) (the ladders of all lanes in one
+     launch) and K2 at (8, 101, 13); then `multistart` on Mishra's bird
+     (the dense backend) and one Gradient, Jacobian and Hessian on the
+     card against the CPU.
 
 Phase 3 also holds K2 with the border's batched right-hand sides:
 (4, 5001, 4) with one column, the path's shape, and (4, 101, 13) with
-two. Launch counts are reset just before each path (phases 4-11) and read
-just after it. The last two lines of output are a JSON object of per-kernel
-results and a JSON object naming the device.
+two; and the batched solve's shapes, K1 at (32, 101, 13) and K2 at
+(8, 101, 13), timed beside the single solve's. Launch counts are reset
+just before each path (phases 4-12) and read just after it. The last two
+lines of output are a JSON object of per-kernel results and a JSON
+object naming the device.
 """
 
 from __future__ import annotations
@@ -100,6 +109,19 @@ LONG_CASES = [
 #: border column) and a wider one with two.
 BORDER_SOLVE_CASES = [(4, 5001, 4, 1), (4, 101, 13, 2)]
 FLYWHEEL_N = 5000
+#: The batched solve (phase 12): cart-pole N=100 from L guesses
+#: 0.01·k·randn(n), k = 0..L-1 (seed 0, as __graft_entry__.py:83-86), and
+#: what the JAX package's `solve_ipm_batched` gives on a CPU: every lane
+#: SUCCESS, these iterations, and this cost to 1e-8 relative.
+LANES = 8
+LANES_JAX_ITERATIONS = [42, 42, 40, 37, 38, 48, 42, 41]
+LANES_JAX_COST = 7578.4538198
+#: K1 over the ladders of all lanes, K2 over the lanes' step systems.
+LANE_FACTOR_SHAPE, LANE_SOLVE_SHAPE = (4 * LANES, N + 1, 13), (LANES, N + 1, 13)
+#: Mishra's bird (tests/optimization/test_multistart.py:69): the guesses
+#: and the constrained global minimum.
+BIRD_GUESSES = [(-3.0, -8.0), (-3.0, -1.5), (-6.0, -4.0), (-2.0, -6.0)]
+BIRD_MINIMUM = (-3.1302468, -1.5821422)
 #: The minimum-time flywheel (VARIABLE_SINGLE) at the top of the repo's
 #: scalability sweep, and the minimum-time double integrator with one
 #: timestep per step (VARIABLE) at the JAX package's largest size that
@@ -371,6 +393,49 @@ def main() -> None:
         "solve_plain": cuda_ms(lambda: plain.block_tridiag_solve(f1, b1), 10),
     }
     print("kernel times (ms): " + ", ".join(f"{k} {v:.4f}" for k, v in times.items()), flush=True)
+
+    # The batched solve's shapes: K1 over the 4-wide ladders of all lanes
+    # at once, and K2 over one system per lane (the rung each lane picks;
+    # here every fourth candidate).
+    D, E, b = random_system(np.random.default_rng(8), *LANE_FACTOR_SHAPE, 0)
+    Dg, Eg, bg = (torch.tensor(a, dtype=torch.float64, device=dev) for a in (D, E, b))
+    fk = cuda_banded.banded_factor(Dg, Eg)
+    fp = plain.block_tridiag_factor(Dg, Eg)
+    xp = plain.block_tridiag_solve(fp, bg)
+    xf = plain.block_tridiag_solve(fk, bg)
+    rung = torch.arange(0, LANE_FACTOR_SHAPE[0], 4, device=dev)
+    fl = plain.BlockTridiagFactor(*(t[rung].contiguous() for t in fp))
+    bl = bg[rung].contiguous()
+    xl, xl_plain = cuda_banded.banded_solve(fl, bl), plain.block_tridiag_solve(fl, bl)
+    torch.cuda.synchronize()
+    ik = [t.tolist() for t in plain.block_tridiag_inertia(fk, EPS_INERTIA)]
+    ip = [t.tolist() for t in plain.block_tridiag_inertia(fp, EPS_INERTIA)]
+    lane_kernels = {
+        "factor": {
+            "B": LANE_FACTOR_SHAPE[0], "K": N + 1, "w": 13,
+            "max_abs_err": (xf - xp).abs().max().item(), "rel_err": rel_diff(xf, xp),
+            "ms": cuda_ms(lambda: cuda_banded.banded_factor(Dg, Eg)),
+            "plain_ms": cuda_ms(lambda: plain.block_tridiag_factor(Dg, Eg), 10),
+            **dict(zip(("bound_ms", "bound_by"), factor_bound(*LANE_FACTOR_SHAPE))),
+        },
+        "solve": {
+            "B": LANE_SOLVE_SHAPE[0], "K": N + 1, "w": 13,
+            "max_abs_err": (xl - xl_plain).abs().max().item(), "rel_err": rel_diff(xl, xl_plain),
+            "ms": cuda_ms(lambda: cuda_banded.banded_solve(fl, bl)),
+            "plain_ms": cuda_ms(lambda: plain.block_tridiag_solve(fl, bl), 10),
+            **dict(zip(("bound_ms", "bound_by"), solve_bound(*LANE_SOLVE_SHAPE))),
+        },
+    }
+    for which, e in lane_kernels.items():
+        print(f"kernels lanes {which} ({e['B']}, {e['K']}, {e['w']}): rel diff {e['rel_err']:.3e}, "
+              f"{e['ms']:.4f} ms (plain {e['plain_ms']:.4f}, bound {e['bound_ms']:.5f}; the "
+              f"single solve's ({4 if which == 'factor' else 1}, {N + 1}, 13): "
+              f"{times[which]:.4f} ms)", flush=True)
+        if not e["rel_err"] <= REL_TOL:
+            fail("kernels", f"lanes {which}: rel diff {e['rel_err']:.3e} > {REL_TOL}")
+    if ik != ip or not torch.equal(fk.perm, fp.perm):
+        fail("kernels", f"lanes factor: inertia {ik} (plain {ip}) or pivots differ")
+    del Dg, Eg, bg, fk, fp, xp, xf, fl, bl, xl, xl_plain
 
     # The long horizons: the same kernels where the TPU chunks. The factor
     # at (B, K, w), the solve on its first system (B=1), as the paths call
@@ -871,6 +936,95 @@ def main() -> None:
         fail("OCP layer", f"single shooting: {type(backend).__name__}, x(1 s) = {x_end}")
     print(f"OCP layer phase: {time.monotonic() - t_phase:.1f} s", flush=True)
 
+    # -- 12. the batched solve, multistart and the drivers ----------------
+    t_phase = time.monotonic()
+    from sleipnir_tpu_torch import (
+        Gradient, Hessian, Jacobian, VariableMatrix, cos, exp, multistart, sin,
+    )
+    from sleipnir_tpu_torch.autodiff import expression as ex
+    from sleipnir_tpu_torch.parallel import solve_ipm_batched
+
+    lanes_problem, LX, LU = cart_pole_problem(N=N, total_time=TOTAL_TIME)
+    lanes_comp = lanes_problem._compile()
+    rng = np.random.default_rng(0)
+    guesses = [0.01 * k * rng.standard_normal(lanes_comp["n"]) for k in range(LANES)]
+    lanes_options = Options(device="cuda")
+    lanes_syncs = lanes_problem.prepare_ipm(lanes_options)[1][-1].syncs
+    syncs_before = lanes_syncs.count
+    cuda_banded.reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    lane_status, lane_costs, lane_xs, lane_final = solve_ipm_batched(
+        lanes_problem, guesses, lanes_options)
+    torch.cuda.synchronize()
+    lanes_s = time.monotonic() - t0
+    lanes_shapes = dict(cuda_banded.LAUNCHES_BY_SHAPE)
+    lanes_launches = {"factor": cuda_banded.FACTOR_LAUNCHES, "solve": cuda_banded.SOLVE_LAUNCHES}
+    lanes_syncs_n = lanes_syncs.count - syncs_before
+    lane_iterations = lane_final.iterations.tolist()
+    # One ladder per batched iteration, all lanes in one K1 launch.
+    batched_iterations = lanes_shapes.get(("factor", *LANE_FACTOR_SHAPE), 0)
+    lane_checks = []
+    for lane in range(LANES):
+        ex._registry.set(lanes_comp["all_ids"], lane_xs[lane])
+        Xv, Uv = LX.value(), LU.value()
+        lane_checks.append((
+            float(np.abs(Xv[:, N] - TARGET).max()),
+            max(float(np.abs(Xv[:, k + 1] - rk4_numpy(
+                dynamics_numpy, Xv[:, k : k + 1], Uv[:, k : k + 1], TOTAL_TIME / N).ravel()).max())
+                for k in range(N)),
+            abs(lane_costs[lane] / LANES_JAX_COST - 1.0),
+        ))
+    print(f"batched solve cart-pole N={N}, L={LANES}: statuses {lane_status.tolist()}, "
+          f"iterations {lane_iterations} (the JAX package on a CPU: {LANES_JAX_ITERATIONS}), "
+          f"{batched_iterations} batched iterations, {lanes_s:.2f} s "
+          f"({lanes_s * 1e3 / max(batched_iterations, 1):.1f} ms/batched iteration), host syncs "
+          f"{lanes_syncs_n} ({lanes_syncs_n / max(batched_iterations, 1):.3f}/batched iteration), "
+          f"costs {[f'{c:.10f}' for c in lane_costs]} (JAX {LANES_JAX_COST}), final-state "
+          f"errors {[f'{c[0]:.2e}' for c in lane_checks]}, RK4 oracle "
+          f"{[f'{c[1]:.2e}' for c in lane_checks]}, launches {lanes_shapes}", flush=True)
+    if lane_status.tolist() != [int(ExitStatus.SUCCESS)] * LANES:
+        fail("batched solve", f"lanes ended {lane_status.tolist()}")
+    for lane, (final_err, oracle_err, cost_rel) in enumerate(lane_checks):
+        if not (final_err <= 1e-6 and oracle_err <= 1e-8 and cost_rel <= 1e-8):
+            fail("batched solve", f"lane {lane}: final state {final_err:.3e}, RK4 oracle "
+                 f"{oracle_err:.3e}, cost rel {cost_rel:.3e}")
+    for key in (("factor", *LANE_FACTOR_SHAPE), ("solve", *LANE_SOLVE_SHAPE)):
+        if not lanes_shapes.get(key):
+            fail("batched solve", f"no launch at {key}: {lanes_shapes}")
+    if any(k == "factor" and B not in (4 * LANES, LANES) for k, B, _K, _w in lanes_shapes):
+        fail("batched solve", f"a ladder was factored per lane: {lanes_shapes}")
+
+    bird = Problem()
+    bx, by = bird.decision_variable(), bird.decision_variable()
+    bird.minimize(sin(by) * exp((1 - cos(bx)) ** 2) + cos(bx) * exp((1 - sin(by)) ** 2)
+                  + (bx - by) ** 2)
+    bird.subject_to((bx + 5) ** 2 + (by + 5) ** 2 < 25)
+    t0 = time.monotonic()
+    best = multistart(bird, [np.asarray(g) for g in BIRD_GUESSES])
+    bird_s = time.monotonic() - t0
+    print(f"multistart Mishra's bird ({len(BIRD_GUESSES)} lanes, dense backend): {best.status}, "
+          f"x {np.asarray(best.variables).tolist()}, cost {best.cost:.10f}, {bird_s:.2f} s",
+          flush=True)
+    if best.status != ExitStatus.SUCCESS or not np.abs(
+            np.asarray(best.variables) - BIRD_MINIMUM).max() <= 1e-3:
+        fail("batched solve", f"multistart gave {best}")
+
+    dv = VariableMatrix(3)
+    dv.set_value(np.array([[0.3], [-1.2], [2.5]]))
+    dexpr = sin(dv[0, 0]) * dv[1, 0] ** 3 + exp(dv[2, 0] * dv[0, 0])
+    dvec = VariableMatrix([[dv[0, 0] * dv[1, 0]], [cos(dv[2, 0])]])
+    driver_errs = {}
+    for name, make in (("Gradient", lambda d: Gradient(dexpr, dv, device=d)),
+                       ("Jacobian", lambda d: Jacobian(dvec, dv, device=d)),
+                       ("Hessian", lambda d: Hessian(dexpr, dv, device=d))):
+        on_card, on_cpu = make("cuda").value(), make("cpu").value()
+        driver_errs[name] = float(np.abs(on_card - on_cpu).max() / max(np.abs(on_cpu).max(), 1e-300))
+    print(f"drivers on the card against the CPU (rel): {driver_errs}", flush=True)
+    if not all(e <= 1e-12 for e in driver_errs.values()):
+        fail("batched solve", f"drivers differ between the card and the CPU: {driver_errs}")
+    print(f"batched solve phase: {time.monotonic() - t_phase:.1f} s", flush=True)
+
     # -- results ----------------------------------------------------------
     path_shapes = (collections.Counter(fly_shapes) + collections.Counter(fr_shapes)
                    + collections.Counter(sqp_shapes) + collections.Counter(mt_shapes)
@@ -926,6 +1080,9 @@ def main() -> None:
             "plain_ms": times["factor_plain"],
             **dict(zip(("bound_ms", "bound_by"), factor_bound(4, N + 1, 13))),
             "library_ms": None,
+            # The batched solve's shape (phase 12): its launches there.
+            "lanes": {**lane_kernels["factor"],
+                      "launches": lanes_shapes.get(("factor", *LANE_FACTOR_SHAPE), 0)},
         },
         {
             "name": "banded_solve",
@@ -939,6 +1096,8 @@ def main() -> None:
             "plain_ms": times["solve_plain"],
             **dict(zip(("bound_ms", "bound_by"), solve_bound(1, N + 1, 13))),
             "library_ms": None,
+            "lanes": {**lane_kernels["solve"],
+                      "launches": lanes_shapes.get(("solve", *LANE_SOLVE_SHAPE), 0)},
         },
         long_entry("factor", "sleipnir_tpu/ops/pallas_banded.py:633"),
         long_entry("solve", "sleipnir_tpu/ops/pallas_banded.py:680"),

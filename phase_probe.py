@@ -9,6 +9,7 @@ Run from the repository root on a machine with a CUDA card:
     python3 phase_probe.py --problem flywheel_sqp --N 5000 --warm 1
     python3 phase_probe.py --problem flywheel_dense --N 1000
     python3 phase_probe.py --problem flywheel_min_time --N 5000
+    python3 phase_probe.py --problem cart_pole_batch --lanes 8
     python3 phase_probe.py --device cpu --N 10 --timed 5 --profiled 3
 
 One solve through `Problem.solve`, run to its end, with the parent's
@@ -42,6 +43,12 @@ of T⁻¹·col on the ladder and the border Schur complement), timed inside
 it. `--problem restoration` runs feasibility restoration alone, from the
 strongly infeasible cart-pole iterate that `chip_smoke.py` uses, with
 every restoration iteration in the timed window (no profiled window).
+`--problem cart_pole_batch` solves cart-pole from `--lanes` guesses
+0.01·k·randn(n) (seed 0, as `chip_smoke.py` phase 12) as the lanes of one
+`solve_ipm_batched` solve; its windows count batched iterations, and its
+`factor` and `solve_refined` are the lane-axis ones of `parallel/lanes.py`
+(every lane's ladder in one K1 launch, every lane's solves in one K2
+launch); `eval_derivs` and f, c_e, c_i run under `vmap` over lanes.
 """
 
 from __future__ import annotations
@@ -53,6 +60,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 from torch.autograd import DeviceType
 
@@ -66,12 +74,16 @@ from sleipnir_tpu_torch.models.flywheel import (
 )
 from sleipnir_tpu_torch.optimization.solver.kkt_backend import DenseBackend
 from sleipnir_tpu_torch.optimization.solver.kkt_banded import BandedBackend
+from sleipnir_tpu_torch.optimization.solver.options import Options
+from sleipnir_tpu_torch.parallel import batch as batch_module
+from sleipnir_tpu_torch.parallel.lanes import _BandedLanes
 
 PHASES = {
     BandedBackend: ("eval_derivs", "factor", "solve_refined"),
     DenseBackend: ("eval_derivs", "factor", "solve_refined"),
     BlockCompiler: ("f", "c_e", "c_i"),
     problem_module: ("restore",),
+    _BandedLanes: ("factor", "solve_refined"),
 }
 #: Phases timed inside another phase, reported as a part of it: name ->
 #: the outer phase.
@@ -193,6 +205,68 @@ def report_timed(probe: Probe, iterations: int) -> None:
           f"{100 * rest / seconds:5.1f}%", flush=True)
 
 
+def report_profiled(probe: Probe) -> None:
+    profiled = probe.span(2)
+    if profiled is None:
+        print("profiled window: not reached", flush=True)
+        return
+    iters, seconds = profiled
+    events = [e for e in probe.profiler.events() if e.device_type == DeviceType.CUDA]
+    if not events:
+        print(f"profiled {iters} iterations: wall {seconds:.3f} s; "
+              "device activity not measured (the profiler saw no device events)", flush=True)
+        return
+    busy_us: collections.Counter = collections.Counter()
+    count: collections.Counter = collections.Counter()
+    for e in events:
+        busy_us[e.name] += e.time_range.elapsed_us()
+        count[e.name] += 1
+    busy = sum(busy_us.values()) / 1e6
+    print(f"profiled {iters} iterations: wall {seconds:.3f} s, device busy "
+          f"{busy:.3f} s ({100 * busy / seconds:.2f}%), {len(events)} device ops "
+          f"({len(events) / iters:.0f}/iteration)", flush=True)
+    for name, us in busy_us.most_common(8):
+        print(f"  {us / 1e3:9.3f} ms  {count[name]:6d} ops  {name[:90]}", flush=True)
+
+
+def batched(probe: Probe, device: torch.device, n_steps: int, lanes: int) -> None:
+    """Cart-pole from `lanes` guesses as one batched solve; the windows
+    count batched iterations (steps of the lane-axis runner)."""
+    problem, _X, _U = cart_pole_problem(N=n_steps, total_time=5.0)
+    rng = np.random.default_rng(0)
+    n = problem._compile()["n"]
+    guesses = [0.01 * k * rng.standard_normal(n) for k in range(lanes)]
+    make_step = batch_module.make_lane_interior_point
+    steps = [0]
+
+    def hooked(*args, **kwargs):
+        init, step = make_step(*args, **kwargs)
+
+        def hooked_step(states, run):
+            probe.on_iteration(steps[0])
+            steps[0] += 1
+            return step(states, run)
+
+        return init, hooked_step
+
+    batch_module.make_lane_interior_point = hooked
+    options = Options(device=device.type)
+    syncs = problem.prepare_ipm(options)[1][-1].syncs
+    before = syncs.count
+    t0 = time.perf_counter()
+    statuses, _costs, _xs, final = batch_module.solve_ipm_batched(problem, guesses, options)
+    probe.sync()
+    wall = time.perf_counter() - t0
+    probe.finish(steps[0])
+    print(f"cart_pole_batch N={n_steps} L={lanes} on {device.type}: statuses "
+          f"{statuses.tolist()}, iterations {final.iterations.tolist()}, {steps[0]} batched "
+          f"iterations, solve {wall:.3f} s ({wall * 1e3 / max(steps[0], 1):.1f} ms/batched "
+          f"iteration), host syncs/batched iteration "
+          f"{(syncs.count - before) / max(steps[0], 1):.3f}", flush=True)
+    report_timed(probe, steps[0])
+    report_profiled(probe)
+
+
 def restoration(probe: Probe, device: torch.device, n: int) -> None:
     """Restoration alone from the infeasible cart-pole iterate, all of it
     in the timed window."""
@@ -218,9 +292,10 @@ def restoration(probe: Probe, device: torch.device, n: int) -> None:
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--device", default="cuda")
-    parser.add_argument("--problem", choices=sorted(PROBLEMS) + ["restoration"],
+    parser.add_argument("--problem", choices=sorted(PROBLEMS) + ["cart_pole_batch", "restoration"],
                         default="cart_pole")
     parser.add_argument("--N", type=int, default=100, help="horizon steps")
+    parser.add_argument("--lanes", type=int, default=8, help="guesses of cart_pole_batch")
     parser.add_argument("--warm", type=int, default=3)
     parser.add_argument("--timed", type=int, default=30)
     parser.add_argument("--profiled", type=int, default=10)
@@ -257,6 +332,9 @@ def main() -> None:
     if args.problem == "restoration":
         restoration(probe, device, args.N)
         return
+    if args.problem == "cart_pole_batch":
+        batched(probe, device, args.N, args.lanes)
+        return
     problem, _X, _U = PROBLEMS[args.problem](N=args.N, total_time=5.0)
     t0 = time.perf_counter()
     status = problem.solve(device=args.device)
@@ -273,28 +351,7 @@ def main() -> None:
           f"{restore_s:.3f} s", flush=True)
 
     report_timed(probe, stats.iterations)
-
-    profiled = probe.span(2)
-    if profiled is None:
-        print("profiled window: not reached", flush=True)
-        return
-    iters, seconds = profiled
-    events = [e for e in probe.profiler.events() if e.device_type == DeviceType.CUDA]
-    if not events:
-        print(f"profiled {iters} iterations: wall {seconds:.3f} s; "
-              "device activity not measured (the profiler saw no device events)", flush=True)
-        return
-    busy_us: collections.Counter = collections.Counter()
-    count: collections.Counter = collections.Counter()
-    for e in events:
-        busy_us[e.name] += e.time_range.elapsed_us()
-        count[e.name] += 1
-    busy = sum(busy_us.values()) / 1e6
-    print(f"profiled {iters} iterations: wall {seconds:.3f} s, device busy "
-          f"{busy:.3f} s ({100 * busy / seconds:.2f}%), {len(events)} device ops "
-          f"({len(events) / iters:.0f}/iteration)", flush=True)
-    for name, us in busy_us.most_common(8):
-        print(f"  {us / 1e3:9.3f} ms  {count[name]:6d} ops  {name[:90]}", flush=True)
+    report_profiled(probe)
 
 
 if __name__ == "__main__":

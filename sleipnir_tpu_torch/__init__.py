@@ -15,11 +15,17 @@ fixed and variable timesteps (a shared timestep is the banded backend's
 border column), direct transcription, direct collocation and single
 shooting, over dynamics that run on tensors or only on the DSL. Models:
 cart-pole, flywheel, differential drive and double integrator
-(`sleipnir_tpu_torch.models`). ROADMAP.md lists what is still to port.
+(`sleipnir_tpu_torch.models`). The Gradient, Jacobian and Hessian drivers
+evaluate on the card too, and `multistart` solves its guesses as the lanes
+of one batched interior-point solve (`sleipnir_tpu_torch.parallel`).
+ROADMAP.md lists what is still to port.
 """
 
 from sleipnir_tpu_torch.autodiff import (
     ExpressionType,
+    Gradient,
+    Hessian,
+    Jacobian,
     Variable,
     VariableBlock,
     VariableMatrix,
@@ -57,10 +63,12 @@ from sleipnir_tpu_torch.optimization import (
     ExitStatus,
     InequalityConstraints,
     IterationInfo,
+    MultistartResult,
     Options,
     Problem,
     TimestepMethod,
     TranscriptionMethod,
+    multistart,
 )
 
 __version__ = "0.1.0"
@@ -71,8 +79,12 @@ __all__ = [
     "EqualityConstraints",
     "ExitStatus",
     "ExpressionType",
+    "Gradient",
+    "Hessian",
     "InequalityConstraints",
     "IterationInfo",
+    "Jacobian",
+    "MultistartResult",
     "Options",
     "Problem",
     "TimestepMethod",
@@ -98,6 +110,7 @@ __all__ = [
     "log10",
     "max",
     "min",
+    "multistart",
     "pow",
     "sign",
     "sin",

@@ -1,10 +1,9 @@
 """Autodiff layer: expression DAG and Variable DSL, compiled into torch
-functions of the flat decision vector (port of `sleipnir_tpu.autodiff`).
-
-Gradient, Jacobian and Hessian (`autodiff/drivers.py` in the JAX package)
-are not ported yet (ROADMAP queue 1 item 3).
+functions of the flat decision vector (port of `sleipnir_tpu.autodiff`),
+and the Gradient, Jacobian and Hessian drivers over it.
 """
 
+from sleipnir_tpu_torch.autodiff.drivers import Gradient, Hessian, Jacobian
 from sleipnir_tpu_torch.autodiff.expression_type import ExpressionType
 from sleipnir_tpu_torch.autodiff.functions import (
     abs,  # noqa: A004
@@ -45,7 +44,10 @@ from sleipnir_tpu_torch.autodiff.variable import (
 __all__ = [
     "EqualityConstraints",
     "ExpressionType",
+    "Gradient",
+    "Hessian",
     "InequalityConstraints",
+    "Jacobian",
     "Variable",
     "VariableBlock",
     "VariableMatrix",

@@ -20,7 +20,9 @@ tensors it runs the plain twin in `ops/block_tridiag.py`. The launch
 counters `FACTOR_LAUNCHES` and `SOLVE_LAUNCHES` count wrapper calls that
 launched (the factor is two kernel launches, the solve three), and
 `LAUNCHES_BY_SHAPE` counts them by (kind, B, K, w), so a run can show
-which shapes reached the kernels. The TPU's chunked kernels
+which shapes reached the kernels; `PLAIN_BY_SHAPE` counts, by the same
+key, the calls that ran the plain twin, so a run on the CPU shows the
+shapes a run on the card would launch. The TPU's chunked kernels
 (`_pallas_factor_chunked`, `_pallas_solve_chunked`), which long horizons
 take there, have no separate counterpart: these kernels stream every
 stage's blocks from device memory whatever K is.
@@ -41,6 +43,8 @@ FACTOR_LAUNCHES = 0
 SOLVE_LAUNCHES = 0
 #: The same launches by ("factor" | "solve", B, K, w).
 LAUNCHES_BY_SHAPE: collections.Counter = collections.Counter()
+#: Wrapper calls given CPU tensors (the plain twin ran), by the same key.
+PLAIN_BY_SHAPE: collections.Counter = collections.Counter()
 
 #: Widest stage block the kernels take (the feasibility-restoration
 #: system of cart-pole is 37 wide); their shared memory is sized for it.
@@ -56,6 +60,7 @@ def reset_counters() -> None:
     FACTOR_LAUNCHES = 0
     SOLVE_LAUNCHES = 0
     LAUNCHES_BY_SHAPE.clear()
+    PLAIN_BY_SHAPE.clear()
 
 
 def _library():
@@ -109,6 +114,7 @@ def banded_factor(D: torch.Tensor, E: torch.Tensor) -> BlockTridiagFactor:
     """Factor a batch of block-tridiagonal systems: D (B, K, w, w) f64
     diagonal blocks, E (B, K-1, w, w) f64 blocks below them."""
     if D.device.type == "cpu" and E.device.type == "cpu":
+        PLAIN_BY_SHAPE["factor", *D.shape[:3]] += 1
         return block_tridiag.block_tridiag_factor(D, E)
     if D.dim() != 4:
         raise ValueError(f"D must be (B, K, w, w), got {tuple(D.shape)}")
@@ -138,6 +144,7 @@ def banded_factor(D: torch.Tensor, E: torch.Tensor) -> BlockTridiagFactor:
 def banded_solve(fac: BlockTridiagFactor, b: torch.Tensor) -> torch.Tensor:
     """Solve factored systems for b (B, K, w) or (B, K, w, r) f64."""
     if b.device.type == "cpu":
+        PLAIN_BY_SHAPE["solve", *b.shape[:3]] += 1
         return block_tridiag.block_tridiag_solve(fac, b)
     if b.dim() not in (3, 4):
         raise ValueError(f"b must be (B, K, w[, r]), got {tuple(b.shape)}")

@@ -1,5 +1,6 @@
 """Optimization layer: Problem DSL, the interior-point, SQP and Newton
-solvers and the OCP layer (port of `sleipnir_tpu.optimization`)."""
+solvers, the OCP layer and multistart (port of
+`sleipnir_tpu.optimization`)."""
 
 from sleipnir_tpu_torch.autodiff import bounds
 from sleipnir_tpu_torch.autodiff.variable import (
@@ -12,6 +13,7 @@ from sleipnir_tpu_torch.optimization.ocp import (
     TimestepMethod,
     TranscriptionMethod,
 )
+from sleipnir_tpu_torch.optimization.multistart import MultistartResult, multistart
 from sleipnir_tpu_torch.optimization.problem import Problem
 from sleipnir_tpu_torch.optimization.solver.exit_status import ExitStatus
 from sleipnir_tpu_torch.optimization.solver.iteration_info import IterationInfo
@@ -24,9 +26,11 @@ __all__ = [
     "ExitStatus",
     "InequalityConstraints",
     "IterationInfo",
+    "MultistartResult",
     "Options",
     "Problem",
     "TimestepMethod",
     "TranscriptionMethod",
     "bounds",
+    "multistart",
 ]

@@ -68,8 +68,8 @@ def resolve_device(name: str) -> torch.device:
     device = torch.device(name)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            f"Options(device={name!r}) asks for CUDA, which is not available; "
-            "pass device='cpu' to solve on the CPU"
+            f"device={name!r} asks for CUDA, which is not available; "
+            "pass device='cpu' to run on the CPU"
         )
     return device
 
@@ -262,7 +262,7 @@ class Problem:
         if options.diagnostics or spy:
             raise NotImplementedError(
                 "diagnostics printing and sparsity recording are not ported "
-                "yet (ROADMAP queue 1 item 1: util/{profiler,print_diagnostics,spy})"
+                "yet (ROADMAP queue 1 item 6: util/{profiler,print_diagnostics,spy})"
             )
 
         f_type = self.cost_function_type()
@@ -527,31 +527,56 @@ class Problem:
         ci_inf = np.max(np.abs(ci_rows), axis=1, initial=0.0)
         return ProblemScaling.from_row_norms(g0, ce_inf, ci_inf), ci_rows, ci_cols
 
+    def prepare_ipm(self, options: Options | None = None):
+        """Compile (or fetch cached) the interior-point solver of this
+        problem: (comp, (init, step, resume, funcs, g_fn, backend)), on
+        the device `options.device` names. `solve()` and the batched
+        drivers of `sleipnir_tpu_torch.parallel` use it."""
+        if options is None:
+            options = Options()
+        comp = self._compile()
+        return comp, self._prepare_ipm(comp, options, resolve_device(options.device))
+
+    def compute_ipm_scaling(self, comp: dict, bundle, x0, params):
+        """Problem scaling at a starting point (reference
+        problem.hpp:612-616), on the solve device. Returns (scaling, rows):
+        the banded backend's per-row inequality Jacobian entries and their
+        columns (ci_rows, ci_cols) from its probes, or the dense Aᵢ at x0;
+        bound detection reads them."""
+        *_, funcs, g_fn, backend = bundle
+        if isinstance(backend, BandedBackend):
+            scaling, ci_rows, ci_cols = self._ipm_scaling(g_fn, backend, x0, params)
+            return scaling, (ci_rows, ci_cols)
+        device = backend.device
+        xd, pd = (torch.as_tensor(a, dtype=torch.float64, device=device) for a in (x0, params))
+        ones = self._unit_scaling(comp, device)
+        A_e0 = funcs.A_e(xd, pd, ones).cpu().numpy()
+        A_i0 = funcs.A_i(xd, pd, ones).cpu().numpy()
+        return ProblemScaling.for_ipm(g_fn(xd, pd).cpu().numpy(), A_e0, A_i0), A_i0
+
     def _solve_ipm(self, comp, x0, params, options, start_time):
         """(reference problem.hpp:512-669)"""
         device = resolve_device(options.device)
-        init, step, resume, funcs, g_fn, backend = self._prepare_ipm(comp, options, device)
+        bundle = self._prepare_ipm(comp, options, device)
+        init, step, resume, funcs, g_fn, backend = bundle
         syncs_before = backend.syncs.count
         banded = isinstance(backend, BandedBackend)
 
         def on_device(a):
             return torch.as_tensor(a, dtype=torch.float64, device=device)
 
-        xd, pd = on_device(x0), on_device(params)
+        pd = on_device(params)
 
         # This set-up runs once per solve, on the solve device. The banded
         # path never materializes a Jacobian; the dense one scales from
         # Aₑ and Aᵢ at x0 (reference problem.hpp:612-616).
-        c_i0 = comp["c_i"](xd, pd).cpu().numpy()
+        c_i0 = comp["c_i"](on_device(x0), pd).cpu().numpy()
+        scaling, rows = self.compute_ipm_scaling(comp, bundle, x0, params)
         if banded:
-            scaling, ci_rows, ci_cols = self._ipm_scaling(g_fn, backend, x0, params)
+            ci_rows, ci_cols = rows
             bounds = get_bounds_rows(x0, c_i0, ci_cols, ci_rows, comp["ineq_row_linear"])
         else:
-            ones = self._unit_scaling(comp, device)
-            A_e0 = funcs.A_e(xd, pd, ones).cpu().numpy()
-            A_i0 = funcs.A_i(xd, pd, ones).cpu().numpy()
-            scaling = ProblemScaling.for_ipm(g_fn(xd, pd).cpu().numpy(), A_e0, A_i0)
-            bounds = get_bounds(x0, c_i0, A_i0, comp["ineq_row_linear"])
+            bounds = get_bounds(x0, c_i0, rows, comp["ineq_row_linear"])
         sc = ScalingArrays(f=scaling.f, c_e=scaling.c_e, c_i=scaling.c_i)
 
         # Bound conflict check (reference problem.hpp:597-610)

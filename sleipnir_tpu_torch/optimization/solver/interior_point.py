@@ -124,6 +124,21 @@ def _max_abs(v: torch.Tensor) -> torch.Tensor:
     return torch.max(torch.abs(v)) if v.numel() else v.new_zeros(())
 
 
+def phi(f, s, mu):
+    """Log-barrier merit φ_μ(x, s) = f − μ Σ ln sᵢ (reference :504)."""
+    return f - mu * torch.sum(torch.log(s))
+
+
+def viol(c_e, c_i, s):
+    """Constraint violation θ = ‖cₑ‖₁ + ‖cᵢ − s‖₁ (filter.hpp:53-57)."""
+    return _one_norm(c_e) + _one_norm(c_i - s)
+
+
+def clamp_z(z, mu, s):
+    """z clamped to the κ_Σ band around μ/s (reference :784-801)."""
+    return torch.clamp(z, (1.0 / KAPPA_SIGMA) * mu / s, KAPPA_SIGMA * mu / s)
+
+
 def make_interior_point(
     funcs: IPMFunctions,
     options: Options,
@@ -155,18 +170,6 @@ def make_interior_point(
 
     def tensor(a):
         return torch.as_tensor(a, dtype=_F64, device=device)
-
-    def phi(f, s, mu):
-        """Log-barrier merit φ_μ(x, s) = f − μ Σ ln sᵢ (reference :504)."""
-        return f - mu * torch.sum(torch.log(s))
-
-    def viol(c_e, c_i, s):
-        """Constraint violation θ = ‖cₑ‖₁ + ‖cᵢ − s‖₁ (filter.hpp:53-57)."""
-        return _one_norm(c_e) + _one_norm(c_i - s)
-
-    def clamp_z(z, mu, s):
-        """z clamped to the κ_Σ band around μ/s (reference :784-801)."""
-        return torch.clamp(z, (1.0 / KAPPA_SIGMA) * mu / s, KAPPA_SIGMA * mu / s)
 
     # -- init --------------------------------------------------------------
 

@@ -202,30 +202,46 @@ class DenseBackend:
 
     # -- factorization -----------------------------------------------------
 
+    def kkt_lhs(self, d: DenseDerivs, sigma) -> torch.Tensor:
+        """The unregularized [H + AᵢᵀΣAᵢ, Aₑᵀ; Aₑ, 0], built from whole
+        blocks so that it also runs under `vmap` over lanes."""
+        me = self.me
+        top_left = d.H + (d.A_i.T @ (sigma[:, None] * d.A_i) if self.mi > 0 else 0.0)
+        return torch.cat([
+            torch.cat([top_left, d.A_e.T], dim=1),
+            torch.cat([d.A_e, self._zeros(me, me)], dim=1),
+        ], dim=0)
+
+    def regularization_diagonals(self):
+        """The diagonals δ and γ scale: (1 on x, 0 on y) and (0, −1)."""
+        n, me = self.n, self.me
+        ones = torch.ones(n, dtype=torch.float64, device=self.device)
+        return (torch.cat([ones, self._zeros(me)]),
+                torch.cat([self._zeros(n), -torch.ones(me, dtype=torch.float64, device=self.device)]))
+
+    def factor_candidates(self, A, deltas, gammas):
+        """Equilibrate and factor B regularized systems A (B, N, N) at
+        once and count each one's inertia. Returns ((L, d, s), pos, neg,
+        zero, failed), each with the leading axis B."""
+        A, s = _equilibrate_dense(A)
+        L, dd = ldlt_factor(A)
+        pos, neg, zero = inertia(dd, EPS_INERTIA)
+        small = (torch.abs(dd) < SMALL_PIVOT).any(dim=-1) & (deltas == 0.0) & (gammas == 0.0)
+        failed = ~torch.isfinite(dd).all(dim=-1) | small
+        return (L, dd, s), pos, neg, zero, failed
+
     def factor(self, d: DenseDerivs, sigma, prev_delta, gamma_min) -> DenseFactor:
         """Assemble [H + AᵢᵀΣAᵢ, Aₑᵀ; Aₑ, −γI] and factor it with inertia
         correction (reference interior_point.hpp:426-465), the ladder's
         candidates as one batch."""
-        n, me = self.n, self.me
-        top_left = d.H + (d.A_i.T @ (sigma[:, None] * d.A_i) if self.mi > 0 else 0.0)
-        lhs = self._zeros(n + me, n + me)
-        lhs[:n, :n] = top_left
-        if me > 0:
-            lhs[:n, n:] = d.A_e.T
-            lhs[n:, :n] = d.A_e
-        reg_pos = torch.cat([torch.ones(n, dtype=torch.float64, device=self.device), self._zeros(me)])
-        reg_neg = torch.cat([self._zeros(n), -torch.ones(me, dtype=torch.float64, device=self.device)])
+        lhs = self.kkt_lhs(d, sigma)
+        reg_pos, reg_neg = self.regularization_diagonals()
 
         def factor_with(deltas, gammas):
             diag = deltas[:, None] * reg_pos + gammas[:, None] * reg_neg
-            A, s = _equilibrate_dense(lhs + torch.diag_embed(diag))
-            L, dd = ldlt_factor(A)
-            pos, neg, zero = inertia(dd, EPS_INERTIA)
-            small = (torch.abs(dd) < SMALL_PIVOT).any(dim=-1) & (deltas == 0.0) & (gammas == 0.0)
-            failed = ~torch.isfinite(dd).all(dim=-1) | small
-            return (L, dd, s), pos, neg, zero, failed
+            return self.factor_candidates(lhs + torch.diag_embed(diag), deltas, gammas)
 
-        out = regularization_loop(factor_with, n, me, prev_delta, gamma_min, self.syncs)
+        out = regularization_loop(factor_with, self.n, self.me, prev_delta, gamma_min, self.syncs)
         L, dd, s = (t[0] for t in out.fac)
         return DenseFactor(L=L, d=dd, s=s, delta=out.delta, gamma=out.gamma, ok=out.ok)
 

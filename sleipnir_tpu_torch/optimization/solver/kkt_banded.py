@@ -194,6 +194,7 @@ class BandedBackend:
 
         # Gather/scatter indices
         self._border_pos = dev(border)
+        self._nb_idx = dev(np.arange(nb))
         self._var_perm = dev(st.var_perm)
         self._kmod3 = dev(np.arange(K) % 3)
         self._k_idx = dev(np.arange(K))
@@ -210,7 +211,6 @@ class BandedBackend:
         eq_count = np.bincount(ce_stage, minlength=K) if me else np.zeros(K, np.int64)
         self._eq_slot_real = dev(np.arange(p)[None, :] < eq_count[:, None], torch.bool)
         self._eye_m = torch.eye(m, dtype=_F64, device=device)
-        self._pad_idx = dev(np.arange(m, self.w))
 
     def _zeros(self, *shape) -> torch.Tensor:
         return torch.zeros(shape, dtype=_F64, device=self.device)
@@ -390,54 +390,41 @@ class BandedBackend:
     def assemble_staged(self, d: BandedDerivs, sigma, deltas, gammas):
         """Assemble the staged KKT blocks for a batch of regularizations
         (deltas, gammas, each (B,)): D (B, K, w, w) and E (K-1, w, w), the
-        matrices the factorization works on."""
-        K, m, w = self.K, self.m, self.w
+        matrices the factorization works on. Built from whole blocks, with
+        no writes into a fresh tensor, so it also runs under `vmap` over
+        lanes of derivatives."""
+        K, m, p = self.K, self.m, self.p
         B = deltas.shape[0]
         if self.mi > 0:
             sig_st = self._stage_ineq(sigma)
             top_left = d.Hd + torch.einsum("kqm,kq,kqn->kmn", d.Ailoc, sig_st, d.Ailoc)
         else:
             top_left = d.Hd
-        D = self._zeros(B, K, w, w)
-        D[:, :, :m, :m] = top_left + deltas[:, None, None, None] * self._eye_m
-        D[:, :, :m, m:] = d.Aloc.transpose(1, 2)
-        D[:, :, m:, :m] = d.Aloc
+        top = torch.cat([
+            top_left + deltas[:, None, None, None] * self._eye_m,
+            d.Aloc.transpose(1, 2).expand(B, K, m, p),
+        ], dim=-1)
         # Real equality slots get −γ; padded slots a fixed −1 pivot
-        pad = self._pad_idx
-        D[:, :, pad, pad] = torch.where(self._eq_slot_real, -gammas[:, None, None], -1.0)
-        E = self._zeros(max(K - 1, 0), w, w)
+        pad = torch.diag_embed(torch.where(self._eq_slot_real, -gammas[:, None, None], -1.0))
+        D = torch.cat([top, torch.cat([d.Aloc.expand(B, K, p, m), pad], dim=-1)], dim=-2)
         if K > 1:
-            E[:, :m, :m] = d.Hc
-            E[:, :m, m:] = d.Anext[:-1].transpose(1, 2)
+            E = torch.cat([
+                torch.cat([d.Hc, d.Anext[:-1].transpose(1, 2)], dim=-1),
+                self._zeros(K - 1, p, self.w),
+            ], dim=-2)
+        else:
+            E = self._zeros(0, self.w, self.w)
         return D, E
 
     def factor(self, d: BandedDerivs, sigma, prev_delta, gamma_min) -> BandedFactor:
-        nb = self.nb
         col0, e0 = self._assemble_border(d, sigma)
 
         def factor_with(deltas, gammas):
             D, E = self.assemble_staged(d, sigma, deltas, gammas)
-            E = E.expand(deltas.shape[0], *E.shape)
-            Ds, Es, s_eq = _equilibrate(D, E)
-            fac = cuda_banded.banded_factor(Ds.contiguous(), Es.contiguous())
-            pos, neg, zero = block_tridiag_inertia(fac, EPS_INERTIA)
-            piv = fac.d.flatten(1)
-            if nb > 0:
-                # The border Schur complement's pivots count toward the
-                # inertia and the gates like the band's, on the device.
-                X, Lb, db = self._border_schur(d, sigma, fac, s_eq, col0, e0, deltas, gammas)
-                pos = pos + (db > EPS_INERTIA).sum(dim=1)
-                neg = neg + (db < -EPS_INERTIA).sum(dim=1)
-                zero = zero + nb - (db > EPS_INERTIA).sum(dim=1) - (db < -EPS_INERTIA).sum(dim=1)
-                piv = torch.cat([piv, db], dim=1)
-            else:
-                B = deltas.shape[0]
-                X = self._zeros(B, 0, self.K, self.w)
-                Lb, db = self._zeros(B, 0, 0), self._zeros(B, 0)
-            small_any = (torch.abs(piv) < SMALL_PIVOT).any(dim=1)
-            finite = torch.isfinite(piv).all(dim=1)
-            small = (deltas == 0.0) & (gammas == 0.0) & small_any
-            return (fac, s_eq, X, Lb, db), pos, neg, zero, ~finite | small
+            return self.factor_candidates(
+                D, E.expand(deltas.shape[0], *E.shape), deltas, gammas,
+                lambda fac, s_eq: self._border_schur(d, sigma, fac, s_eq, col0, e0, deltas, gammas),
+            )
 
         out: RegLoopResult = regularization_loop(
             factor_with, self.n, self.K * self.p, prev_delta, gamma_min, self.syncs
@@ -447,6 +434,34 @@ class BandedBackend:
             fac=fac, s=s_eq[0], col=col0, Xcols=X[0], e0=e0, Sb_L=Lb[0], Sb_d=db[0],
             delta=out.delta, gamma=out.gamma, ok=out.ok,
         )
+
+    def factor_candidates(self, D, E, deltas, gammas, border_schur):
+        """Equilibrate and factor B assembled candidates, D (B, K, w, w)
+        and E (B, K-1, w, w), in one K1 launch, and count each one's
+        inertia. `border_schur(fac, s_eq)` gives the border's (X, L, d)
+        when the problem has one. Returns ((fac, s_eq, X, Lb, db), pos,
+        neg, zero, failed), each with the leading axis B."""
+        nb = self.nb
+        B = deltas.shape[0]
+        Ds, Es, s_eq = _equilibrate(D, E)
+        fac = cuda_banded.banded_factor(Ds.contiguous(), Es.contiguous())
+        pos, neg, zero = block_tridiag_inertia(fac, EPS_INERTIA)
+        piv = fac.d.flatten(1)
+        if nb > 0:
+            # The border Schur complement's pivots count toward the
+            # inertia and the gates like the band's, on the device.
+            X, Lb, db = border_schur(fac, s_eq)
+            pos = pos + (db > EPS_INERTIA).sum(dim=1)
+            neg = neg + (db < -EPS_INERTIA).sum(dim=1)
+            zero = zero + nb - (db > EPS_INERTIA).sum(dim=1) - (db < -EPS_INERTIA).sum(dim=1)
+            piv = torch.cat([piv, db], dim=1)
+        else:
+            X = self._zeros(B, 0, self.K, self.w)
+            Lb, db = self._zeros(B, 0, 0), self._zeros(B, 0)
+        small_any = (torch.abs(piv) < SMALL_PIVOT).any(dim=1)
+        finite = torch.isfinite(piv).all(dim=1)
+        small = (deltas == 0.0) & (gammas == 0.0) & small_any
+        return (fac, s_eq, X, Lb, db), pos, neg, zero, ~finite | small
 
     def _border_schur(self, d, sigma, fac, s_eq, col0, e0, deltas, gammas):
         """T⁻¹·col for every border column of every ladder candidate, with
@@ -469,11 +484,10 @@ class BandedBackend:
 
     def _assemble_border(self, d: BandedDerivs, sigma):
         """The border columns in staged layout (nb, K, w) and the δ-free
-        border block e₀ = H_bb + Σᵣ σᵣ a_b a_bᵀ (nb, nb)."""
-        K, m, w, nb = self.K, self.m, self.w, self.nb
-        col = self._zeros(nb, K, w)
+        border block e₀ = H_bb + Σᵣ σᵣ a_b a_bᵀ (nb, nb); `vmap`-safe."""
+        K, w, nb = self.K, self.w, self.nb
         if nb == 0:
-            return col, self._zeros(0, 0)
+            return self._zeros(nb, K, w), self._zeros(0, 0)
         colm = d.Hb  # (nb, K, m)
         e0 = d.Hbb
         if self.mi > 0:
@@ -481,10 +495,12 @@ class BandedBackend:
             Aib_st = self._zeros(K, self.q, nb).index_put((self._ci_stage, self._ci_slot), d.Aib)
             colm = colm + torch.einsum("kq,kqm,kqb->bkm", sig_st, d.Ailoc, Aib_st)
             e0 = e0 + torch.einsum("r,ra,rb->ab", sigma, d.Aib, d.Aib)
-        col[:, :, :m] = colm
+        cole = self._zeros(nb, K, self.p)
         if self.me > 0:
-            col[:, self._ce_stage, m + self._ce_slot] = d.Aeb.T
-        return col, e0
+            cole = cole.index_put(
+                (self._nb_idx[:, None], self._ce_stage[None, :], self._ce_slot[None, :]), d.Aeb.T
+            )
+        return torch.cat([colm, cole], dim=-1), e0
 
     def _scaled_solve(self, fac: BandedFactor, b: torch.Tensor) -> torch.Tensor:
         """Solve the regularized staged system for b (K, w)."""
@@ -507,17 +523,14 @@ class BandedBackend:
         return u0 - torch.einsum("bkw,b->kw", fac.Xcols, v), v
 
     def _staged_rhs(self, rhs_top, rhs_bottom):
-        """Flat rhs -> staged (K, w) and border (nb,) parts."""
-        b = self._zeros(self.K, self.w)
-        b[:, : self.m] = self._stage_vec(rhs_top)
-        if self.me > 0:
-            b[self._ce_stage, self.m + self._ce_slot] = rhs_bottom
+        """Flat rhs -> staged (K, w) and border (nb,) parts; `vmap`-safe."""
+        b = torch.cat([self._stage_vec(rhs_top), self._stage_eq(rhs_bottom)], dim=-1)
         return b, rhs_top[self._border_pos]
 
     def _unpack_solution(self, sol, v_b):
         p_x = self._unstage_vec(sol[:, : self.m])
         if self.nb > 0:
-            p_x[self._border_pos] = v_b
+            p_x = p_x.index_put((self._border_pos,), v_b)
         p_y = (
             -sol[self._ce_stage, self.m + self._ce_slot]
             if self.me > 0

@@ -41,6 +41,9 @@ def _random_system(rng, B, K, w, r):
     "B,K,w,r",
     [
         (4, 101, 13, None), (1, 101, 13, 3), (2, 40, 37, None), (1, 7, 3, None), (3, 1, 4, None),
+        # The batched solve's shapes at 8 lanes: K1 over all ladders, K2
+        # over the lanes' step systems.
+        (32, 101, 13, None), (8, 101, 13, None),
     ],
 )
 def test_kernels_match_twin_on_card(cuda_device, B, K, w, r):

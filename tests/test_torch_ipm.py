@@ -106,7 +106,7 @@ def test_missing_cuda_raises_instead_of_falling_back():
 
 
 def test_paths_outside_the_slice_raise():
-    """Diagnostics printing (queue 1 item 1) is not ported; problems
+    """Diagnostics printing (queue 1 item 6) is not ported; problems
     without OCP structure solve densely, and the OCP options of item 11
     (variable timesteps, collocation) are ported: they build banded stage
     structures, per-step dt in the stage and a shared dt as a border."""
@@ -114,7 +114,7 @@ def test_paths_outside_the_slice_raise():
     x = p.decision_variable()
     p.minimize(x**4 + x)
     p.subject_to(x >= -1.0)
-    with pytest.raises(NotImplementedError, match="item 1:"):
+    with pytest.raises(NotImplementedError, match="item 6:"):
         p.solve(device="cpu", diagnostics=True)
     assert p.solve(device="cpu") == tslp.ExitStatus.SUCCESS
     for kwargs, width, border in (
