@@ -18,7 +18,8 @@ Phases, each of which exits non-zero on failure:
   4. main path: the cart-pole swing-up at N=100 solved on the card to the
      1e-8 tolerance, once, timed from the initial guess; the result must
      satisfy the RK4 physics oracle and reach the target state, and both
-     kernels must have been launched by the solve;
+     kernels must have been launched by the solve; then a second problem
+     built the same way, timed in the warm process, with the same result;
   5. precision probe: `sleipnir_tpu_torch.tools.dd_probe` on the card, one
      kernel launch per probe run; every double-float output must equal
      its plain version bit for bit and the one-hot product torch.matmul's;
@@ -62,16 +63,34 @@ Phase 3 also holds K2 with the border's batched right-hand sides:
 (4, 5001, 4) with one column, the path's shape, and (4, 101, 13) with
 two; and the batched solve's shapes, K1 at (32, 101, 13) and K2 at
 (8, 101, 13), timed beside the single solve's. Launch counts are reset
-just before each path (phases 4-12) and read just after it. The last two
-lines of output are a JSON object of per-kernel results and a JSON
+just before each path (phases 4-12) and read just after it.
+
+ 13. graphs: cart-pole N=100, the flywheel at N=5000, restoration at
+     N=2000, the minimum-time flywheel at N=5000 (40 iterations) and the
+     8 lanes again, every graphed problem evaluation held against its
+     eager function on the same inputs, bit for bit, with the iterations
+     of the unchecked runs; then a model-predictive re-solve of the
+     flywheel at N=5000 with new parameters, which must capture nothing
+     and equal a fresh problem's solve bit for bit.
+
+Phases 4-12 print each path's iterations and time per iteration beside
+the figures from before the problem evaluations ran as CUDA graphs,
+and the graphs' captures, replays and capture seconds and the peak device
+memory. Phase 9 also solves the README example with diagnostics=True and
+spy=True and parses the .spy files it writes (under build/spy). The last
+two lines of output are a JSON object of per-kernel results and a JSON
 object naming the device.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
+import io
 import json
 import math
+import os
+import pathlib
 import subprocess
 import sys
 import time
@@ -135,6 +154,27 @@ COLLOCATION_N, COLLOCATION_T = 5000, 3.0
 #: default horizon.
 DENSE_FLYWHEEL_N = 1000
 RESTORATION_N, RESTORATION_SEED, RESTORATION_SCALE = 2000, 7, 0.3
+#: Each path's figures on the card before its problem evaluations ran as
+#: CUDA graphs (PERF.md §5-6; NVIDIA H100 80GB HBM3, 700 W).
+EARLIER = {
+    "cart-pole": "215 iterations, 110.3 s, 513.0 ms/iteration",
+    "flywheel": "18 iterations, 77.3 ms/iteration",
+    "restoration": "resume after 2 iterations, 1563.1 ms/iteration (phase_probe)",
+    "banded SQP": "14 iterations, 45.8-51.6 ms/iteration (phase_probe)",
+    "README": "3 iterations",
+    "dense flywheel": "21 iterations, 510.7-720.1 ms/iteration (phase_probe)",
+    "minimum time": "1,422 iterations, 104.5 ms/iteration",
+    "per-step": "490 iterations",
+    "collocation": "20 iterations, 149-194 ms/iteration",
+    "lanes": "[42, 42, 40, 37, 38, 41, 46, 42], 46 batched iterations, "
+             "593.1 ms/batched iteration",
+}
+#: The paths whose problem evaluations phase 13 holds, graphed against
+#: eager, and the iterations it runs of each (None: to the end). The
+#: minimum-time flywheel takes 1,422 iterations at N=5000; 40 of them
+#: reach every graphed function it has at the path's shapes.
+GRAPH_PATHS = {"cart-pole": None, "flywheel": None, "restoration": None,
+               "minimum time": 40, "lanes": None}
 #: Stage rows K·w above which the TPU package takes its chunked kernels:
 #: ⌈K·w/8⌉·4096 bytes over its 3.5 MB single-shot budget
 #: (sleipnir_tpu/ops/pallas_banded.py:471, :491-493).
@@ -290,6 +330,119 @@ def long_launches(shape_counts, kind):
         f"B={B},K={K},w={w}": n for (k, B, K, w), n in shape_counts.items()
         if k == kind and K * w >= TPU_CHUNKED_ROWS
     }
+
+
+_MEMORY_AT_RESET = [0]
+
+
+def reset_graph_counts() -> None:
+    """Zero the CUDA graphs' counters and the peak-memory statistic before
+    a path."""
+    from sleipnir_tpu_torch.optimization.solver.util import cuda_graph
+
+    cuda_graph.reset_counters()
+    torch.cuda.reset_peak_memory_stats()
+    _MEMORY_AT_RESET[0] = torch.cuda.memory_allocated()
+
+
+def graph_note() -> str:
+    """The CUDA graphs' counts since `reset_graph_counts`, and the peak
+    device memory over what was allocated then (earlier paths' problems
+    stay allocated)."""
+    from sleipnir_tpu_torch.optimization.solver.util import cuda_graph
+
+    peak = torch.cuda.max_memory_allocated() - _MEMORY_AT_RESET[0]
+    return (f"graphs {cuda_graph.CAPTURES} captures ({cuda_graph.CAPTURE_SECONDS:.2f} s), "
+            f"{cuda_graph.REPLAYS} replays, peak memory {peak / 2**20:.0f} MiB above the "
+            f"path's start")
+
+
+def read_spy(path):
+    """A .spy file (reference util/spy.hpp:20-44): (title, row label,
+    column label, rows, cols, frames), each frame a list of (row, col,
+    sign)."""
+    import struct
+
+    with open(path, "rb") as f:
+        def text():
+            (size,) = struct.unpack("<i", f.read(4))
+            return f.read(size).decode("utf-8")
+
+        title, row_label, col_label = text(), text(), text()
+        rows, cols = struct.unpack("<ii", f.read(8))
+        frames = []
+        while head := f.read(4):
+            (count,) = struct.unpack("<i", head)
+            frames.append([struct.unpack("<ii", f.read(8)) + (f.read(1).decode(),)
+                           for _ in range(count)])
+    return title, row_label, col_label, rows, cols, frames
+
+
+class GraphCheck:
+    """While active, holds every graphed problem evaluation against its
+    eager function on the same inputs, bit for bit: a call that captures
+    a graph (and returns the eager warm-up) is replayed at once on the
+    same inputs, and the first `replays` replays of each function are run
+    eagerly beside it. Records per function the calls held, the bitwise
+    equal ones and the largest relative difference, and the first
+    difference seen (function, call, output leaf)."""
+
+    def __init__(self, replays: int = 2) -> None:
+        self.replays = replays
+        self.held: collections.Counter = collections.Counter()
+        self.equal: collections.Counter = collections.Counter()
+        self.max_rel: dict = collections.defaultdict(float)
+        self.first_diff = None
+
+    def compare(self, name: str, graphed, eager) -> None:
+        from torch.utils import _pytree as pytree
+
+        a_leaves, b_leaves = pytree.tree_leaves(graphed), pytree.tree_leaves(eager)
+        self.held[name] += 1
+        same = len(a_leaves) == len(b_leaves)
+        for i, (a, b) in enumerate(zip(a_leaves, b_leaves)):
+            if not isinstance(a, torch.Tensor):
+                leaf_same = a == b
+            elif a.shape != b.shape or a.dtype != b.dtype:
+                leaf_same = False
+            else:
+                eq = a == b
+                if a.is_floating_point():
+                    eq = eq | (torch.isnan(a) & torch.isnan(b))
+                    diff = torch.where(eq, 0.0, (a - b).abs()).max() if a.numel() else 0.0
+                    scale = b[torch.isfinite(b)].abs().max() if a.numel() else 0.0
+                    rel = float(diff / scale) if float(scale) > 0 else float(diff)
+                    self.max_rel[name] = max(self.max_rel[name], rel)
+                leaf_same = bool(eq.all())
+            if not leaf_same and self.first_diff is None:
+                self.first_diff = (name, self.held[name], i)
+            same = same and leaf_same
+        self.equal[name] += int(same)
+
+    def __enter__(self) -> "GraphCheck":
+        from sleipnir_tpu_torch.optimization.solver.util import cuda_graph
+
+        self._graphed = cuda_graph.Graphed
+        self._call = call = cuda_graph.Graphed.__call__
+        check = self
+
+        def checked(graphed, *args):
+            before = len(graphed._entries)
+            out = call(graphed, *args)
+            if len(graphed._entries) > before:  # captured: `out` ran eagerly
+                check.compare(graphed.name, call(graphed, *args), out)
+            elif check.held[graphed.name] < check.replays + 1:
+                check.compare(graphed.name, out, graphed.eager(*args))
+            return out
+
+        cuda_graph.Graphed.__call__ = checked
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._graphed.__call__ = self._call
+
+    def summary(self) -> dict:
+        return {name: (self.equal[name], n, self.max_rel[name]) for name, n in self.held.items()}
 
 
 def main() -> None:
@@ -537,16 +690,20 @@ def main() -> None:
     t_phase = time.monotonic()
     problem, X, U = cart_pole_problem(N=N, total_time=TOTAL_TIME)
     cuda_banded.reset_counters()
+    reset_graph_counts()
     t0 = time.monotonic()
     status = problem.solve(device="cuda")
     torch.cuda.synchronize()
     solve_s = time.monotonic() - t0
     launches = {"factor": cuda_banded.FACTOR_LAUNCHES, "solve": cuda_banded.SOLVE_LAUNCHES}
     stats = problem.last_solve_stats
+    # Iterations of each path, for phase 13.
+    path_iterations = {"cart-pole": stats.iterations}
     print(f"solve: {status}, {stats.iterations} iterations, {solve_s * 1e3:.1f} ms "
           f"({solve_s * 1e3 / max(stats.iterations, 1):.2f} ms/iteration), "
           f"host syncs/iteration {stats.host_syncs_per_iteration:.2f}, "
-          f"launches factor {launches['factor']} solve {launches['solve']}", flush=True)
+          f"launches factor {launches['factor']} solve {launches['solve']}, {graph_note()} "
+          f"(before the graphs: {EARLIER['cart-pole']})", flush=True)
     if status != ExitStatus.SUCCESS:
         fail("main path", f"solve ended {status}")
     if launches["factor"] == 0 or launches["solve"] == 0:
@@ -570,6 +727,22 @@ def main() -> None:
         fail("main path", f"final state {Xv[:, N]} is {final_err:.3e} from the target")
     if not dyn_err <= 1e-8:
         fail("main path", f"trajectory breaks the RK4 oracle by {dyn_err:.3e}")
+    # The first solve of the process also pays one-time costs (lazy
+    # imports, the first calls of every torch.func transform); a second
+    # problem built and solved the same way shows a new problem's time in
+    # a warm process, its captures included.
+    again, AX, _AU = cart_pole_problem(N=N, total_time=TOTAL_TIME)
+    reset_graph_counts()
+    t0 = time.monotonic()
+    again_status = again.solve(device="cuda")
+    torch.cuda.synchronize()
+    again_s = time.monotonic() - t0
+    print(f"a second cart-pole problem: {again_status}, {again.last_solve_stats.iterations} "
+          f"iterations, {again_s * 1e3:.1f} ms "
+          f"({again_s * 1e3 / max(again.last_solve_stats.iterations, 1):.2f} ms/iteration), "
+          f"{graph_note()}", flush=True)
+    if again_status != ExitStatus.SUCCESS or not np.array_equal(AX.value(), Xv):
+        fail("main path", f"a second solve ended {again_status} or differs from the first")
     print(f"main path phase: {time.monotonic() - t_phase:.1f} s", flush=True)
 
     # -- 5. precision probe -----------------------------------------------
@@ -648,26 +821,31 @@ def main() -> None:
     t_phase = time.monotonic()
     fly, FX, FU = flywheel.flywheel_problem(N=FLYWHEEL_N, total_time=TOTAL_TIME)
     cuda_banded.reset_counters()
+    reset_graph_counts()
     t0 = time.monotonic()
     status = fly.solve(device="cuda")
     first_s = time.monotonic() - t0
+    first_note = graph_note()
     if status != ExitStatus.SUCCESS:
         fail("long horizon", f"first flywheel solve ended {status}")
     FX.set_value(np.zeros((1, FLYWHEEL_N + 1)))
     FU.set_value(np.zeros((1, FLYWHEEL_N + 1)))
+    reset_graph_counts()
     t0 = time.monotonic()
     status = fly.solve(device="cuda")
     torch.cuda.synchronize()
     fly_s = time.monotonic() - t0
     fly_shapes = dict(cuda_banded.LAUNCHES_BY_SHAPE)
     fly_iters = fly.last_solve_stats.iterations
+    path_iterations["flywheel"] = fly_iters
     if status != ExitStatus.SUCCESS:
         fail("long horizon", f"timed flywheel solve ended {status}")
     failures = flywheel.oracle_failures(FX.value(), FU.value(), TOTAL_TIME)
     print(f"flywheel N={FLYWHEEL_N}: {status}, {fly_iters} iterations (the JAX package: "
           f"18 on a TPU, docs/scalability_results.md:123), first solve {first_s:.2f} s, "
           f"timed solve {fly_s:.2f} s ({fly_s * 1e3 / fly_iters:.1f} ms/iteration), "
-          f"launches {fly_shapes}, oracle failures {len(failures)}", flush=True)
+          f"launches {fly_shapes}, oracle failures {len(failures)}; first solve {first_note}; "
+          f"timed solve {graph_note()} (before the graphs: {EARLIER['flywheel']})", flush=True)
     if failures:
         fail("long horizon", "flywheel oracle: " + "; ".join(failures[:5]))
     for k in ("factor", "solve"):
@@ -680,15 +858,19 @@ def main() -> None:
     funcs, state, options, backend, violation = restoration_start(RESTORATION_N, dev)
     v0 = violation(state.x)
     cuda_banded.reset_counters()
+    reset_graph_counts()
     t0 = time.monotonic()
     outcome, x_new, _s, _y, _z, fr_iters = restore(funcs, state, options, parent_backend=backend)
     torch.cuda.synchronize()
     restore_s = time.monotonic() - t0
     fr_shapes = dict(cuda_banded.LAUNCHES_BY_SHAPE)
     v1 = violation(x_new)
+    path_iterations["restoration"] = fr_iters
     print(f"restoration cart-pole N={RESTORATION_N}: {outcome} after {fr_iters} iterations, "
-          f"{restore_s:.2f} s, violation {v0:.6g} -> {v1:.6g} ({v1 / v0:.4f} of the start), "
-          f"launches {fr_shapes}", flush=True)
+          f"{restore_s:.2f} s ({restore_s * 1e3 / max(fr_iters, 1):.1f} ms/iteration with the "
+          f"entry's captures), violation {v0:.6g} -> {v1:.6g} ({v1 / v0:.4f} of the start), "
+          f"launches {fr_shapes}, {graph_note()} (before the graphs: "
+          f"{EARLIER['restoration']})", flush=True)
     if outcome != "resume":
         fail("restoration", f"outcome {outcome}")
     if not v1 < 0.95 * v0:
@@ -711,6 +893,7 @@ def main() -> None:
     SX.set_value(np.zeros((1, FLYWHEEL_N + 1)))
     SU.set_value(np.zeros((1, FLYWHEEL_N + 1)))
     cuda_banded.reset_counters()
+    reset_graph_counts()
     t0 = time.monotonic()
     status = sqp.solve(device="cuda")
     torch.cuda.synchronize()
@@ -732,7 +915,8 @@ def main() -> None:
           f"({sqp_s * 1e3 / max(sqp_iters, 1):.1f} ms/iteration), backend "
           f"{type(sqp_backend).__name__} K={sqp_backend.K} stage width w={sqp_backend.w}, "
           f"x_0 {Xs[0, 0]:.3e}, x_N {Xs[0, -1]:.6f}, dynamics residual {sqp_dyn:.3e}, "
-          f"launches {sqp_shapes}", flush=True)
+          f"launches {sqp_shapes}, timed solve {graph_note()} (before the graphs: "
+          f"{EARLIER['banded SQP']})", flush=True)
     if not abs(Xs[0, 0]) < 1e-9:
         fail("banded SQP", f"x_0 = {Xs[0, 0]}")
     if not Xs[0, FLYWHEEL_N] > 9.9:
@@ -759,13 +943,45 @@ def main() -> None:
     [readme_cached] = [v for k, v in readme._solver_cache.items() if k[0] == "sqp"]
     print(f"README example (SQP, {type(readme_cached[-1]).__name__}): {status}, "
           f"{readme.last_solve_stats.iterations} iterations, {readme_s:.3f} s, x = {rx.value()}, "
-          f"y = {ry.value()}", flush=True)
+          f"y = {ry.value()} (before the graphs: {EARLIER['README']})", flush=True)
     if status != ExitStatus.SUCCESS or not (abs(rx.value() - 18.0) <= 1e-8
                                             and abs(ry.value() - 6.0) <= 1e-8):
         fail("dense path", f"README example: {status}, x = {rx.value()}, y = {ry.value()}")
+    # Again with diagnostics=True and spy=True: the iteration table, one
+    # row per iteration, and H.spy and A_e.spy with one frame per
+    # iteration, written in build/spy of the checkout.
+    spy_dir = pathlib.Path(__file__).resolve().parent / "build" / "spy"
+    spy_dir.mkdir(parents=True, exist_ok=True)
+    rx.set_value(1.0)
+    ry.set_value(2.0)
+    cwd, table = os.getcwd(), io.StringIO()
+    os.chdir(spy_dir)
+    try:
+        with contextlib.redirect_stdout(table):
+            status = readme.solve(device="cuda", diagnostics=True, spy=True)
+        spy = {name: read_spy(f"{name}.spy") for name in ("H", "A_e")}
+    finally:
+        os.chdir(cwd)
+    table = table.getvalue()
+    print(table, flush=True)
+    readme_iters = readme.last_solve_stats.iterations
+    rows = [line for line in table.splitlines()
+            if line.startswith("│") and line[1:5].strip().isdigit()]
+    print(f"README example with diagnostics and spy: {status}, {readme_iters} iterations, "
+          f"{len(rows)} table rows, H.spy {spy['H'][:5]} with {len(spy['H'][5])} frames, "
+          f"A_e.spy {spy['A_e'][:5]} with {len(spy['A_e'][5])} frames", flush=True)
+    if status != ExitStatus.SUCCESS or len(rows) != readme_iters or not table.rstrip().endswith(
+            "Exit: success"):
+        fail("dense path", f"diagnostics: {status}, {len(rows)} rows for {readme_iters} iterations")
+    if (spy["H"][:5] != ("Hessian", "Decision variables", "Decision variables", 2, 2)
+            or spy["A_e"][3:5] != (1, 2) or len(spy["H"][5]) != readme_iters
+            or any(frame != [(0, 0, "+"), (0, 1, "+")] for frame in spy["A_e"][5])
+            or len(spy["A_e"][5]) != readme_iters):
+        fail("dense path", f"spy files: H {spy['H'][:5]}, A_e {spy['A_e']}")
     dense_fly, DX, DU = flywheel.flywheel_problem(N=DENSE_FLYWHEEL_N, total_time=TOTAL_TIME,
                                                   fast=False)
     cuda_banded.reset_counters()
+    reset_graph_counts()
     t0 = time.monotonic()
     status = dense_fly.solve(device="cuda")
     torch.cuda.synchronize()
@@ -777,8 +993,8 @@ def main() -> None:
           f"{type(dense_cached[-1]).__name__}, KKT size "
           f"{dense_cached[-1].n + dense_cached[-1].me}): {status}, {dense_iters} iterations, "
           f"{dense_s:.2f} s ({dense_s * 1e3 / max(dense_iters, 1):.1f} ms/iteration), oracle "
-          f"failures {len(dense_failures)}, banded launches {dict(cuda_banded.LAUNCHES_BY_SHAPE)}",
-          flush=True)
+          f"failures {len(dense_failures)}, banded launches {dict(cuda_banded.LAUNCHES_BY_SHAPE)}, "
+          f"{graph_note()} (before the graphs: {EARLIER['dense flywheel']})", flush=True)
     if status != ExitStatus.SUCCESS:
         fail("dense path", f"plain-Problem flywheel ended {status}")
     if type(dense_cached[-1]).__name__ != "DenseBackend":
@@ -798,6 +1014,7 @@ def main() -> None:
         fail("minimum time", f"the solve would run on {type(mt_backend).__name__} "
              f"with nb={getattr(mt_backend, 'nb', None)}, not the bordered banded backend")
     cuda_banded.reset_counters()
+    reset_graph_counts()
     t0 = time.monotonic()
     with warnings.catch_warnings():
         warnings.simplefilter("error")
@@ -806,6 +1023,7 @@ def main() -> None:
     mt_s = time.monotonic() - t0
     mt_shapes = dict(cuda_banded.LAUNCHES_BY_SHAPE)
     mt_stats = mt.last_solve_stats
+    path_iterations["minimum time"] = mt_stats.iterations
     mt_total = float(mt.dt().value(0, 0)) * MIN_TIME_N
     t_star = flywheel.min_time_optimum()
     mt_x, mt_u = MX.value(), MU.value()
@@ -815,7 +1033,8 @@ def main() -> None:
           f"{mt_s:.2f} s ({mt_s * 1e3 / max(mt_stats.iterations, 1):.1f} ms/iteration), host syncs "
           f"{mt_stats.host_syncs} ({mt_stats.host_syncs_per_iteration:.3f}/iteration), N·dt "
           f"{mt_total:.10f} s against T* {t_star:.10f} s (rel {abs(mt_total / t_star - 1):.3e}), "
-          f"x_N {mt_x[0, -1]:.9f}, launches {mt_shapes}", flush=True)
+          f"x_N {mt_x[0, -1]:.9f}, launches {mt_shapes}, {graph_note()} (before the graphs: "
+          f"{EARLIER['minimum time']})", flush=True)
     if status != ExitStatus.SUCCESS:
         fail("minimum time", f"solve ended {status}")
     if not abs(mt_total / t_star - 1.0) <= 1e-3:
@@ -835,6 +1054,7 @@ def main() -> None:
 
     def solve_path(label, problem):
         cuda_banded.reset_counters()
+        reset_graph_counts()
         t0 = time.monotonic()
         with warnings.catch_warnings():
             warnings.simplefilter("error")
@@ -851,7 +1071,7 @@ def main() -> None:
               f"{type(backend).__name__}"
               + (f" K={backend.K} w={backend.w}" if hasattr(backend, "K") else "")
               + f", host syncs {stats.host_syncs_per_iteration:.3f}/iteration, "
-              f"launches {shapes}", flush=True)
+              f"launches {shapes}, {graph_note()}", flush=True)
         if status != ExitStatus.SUCCESS:
             fail("OCP layer", f"{label} ended {status}")
         return backend, shapes, stats
@@ -861,7 +1081,8 @@ def main() -> None:
     per_step = double_integrator.min_time_problem(PER_STEP_N, TimestepMethod.VARIABLE)
     backend, shapes, stats = solve_path(
         f"minimum-time double integrator N={PER_STEP_N} (VARIABLE; the JAX package on a CPU: "
-        f"{PER_STEP_JAX_ITERATIONS} iterations)", per_step)
+        f"{PER_STEP_JAX_ITERATIONS} iterations; before the graphs: {EARLIER['per-step']})",
+        per_step)
     per_step_total = float(per_step.dt().value()[0, :PER_STEP_N].sum())
     print(f"  total time {per_step_total:.10f} s", flush=True)
     if not abs(per_step_total - 2.0) <= 2e-2:
@@ -876,7 +1097,9 @@ def main() -> None:
     colloc.set_lower_input_bound(-12)
     colloc.set_upper_input_bound(12)
     colloc.minimize(((10.0 - colloc.X()) ** 2).sum())
-    backend, shapes, stats = solve_path(f"direct collocation N={COLLOCATION_N}", colloc)
+    backend, shapes, stats = solve_path(
+        f"direct collocation N={COLLOCATION_N} (before the graphs: {EARLIER['collocation']})",
+        colloc)
     cx, cu = colloc.X().value()[0], colloc.U().value()[0]
     h = COLLOCATION_T / COLLOCATION_N
     xdot0, xdot1 = -cx[:-1] + cu[:-1], -cx[1:] + cu[1:]
@@ -952,6 +1175,7 @@ def main() -> None:
     lanes_syncs = lanes_problem.prepare_ipm(lanes_options)[1][-1].syncs
     syncs_before = lanes_syncs.count
     cuda_banded.reset_counters()
+    reset_graph_counts()
     torch.cuda.synchronize()
     t0 = time.monotonic()
     lane_status, lane_costs, lane_xs, lane_final = solve_ipm_batched(
@@ -962,6 +1186,7 @@ def main() -> None:
     lanes_launches = {"factor": cuda_banded.FACTOR_LAUNCHES, "solve": cuda_banded.SOLVE_LAUNCHES}
     lanes_syncs_n = lanes_syncs.count - syncs_before
     lane_iterations = lane_final.iterations.tolist()
+    path_iterations["lanes"] = lane_iterations
     # One ladder per batched iteration, all lanes in one K1 launch.
     batched_iterations = lanes_shapes.get(("factor", *LANE_FACTOR_SHAPE), 0)
     lane_checks = []
@@ -982,7 +1207,8 @@ def main() -> None:
           f"{lanes_syncs_n} ({lanes_syncs_n / max(batched_iterations, 1):.3f}/batched iteration), "
           f"costs {[f'{c:.10f}' for c in lane_costs]} (JAX {LANES_JAX_COST}), final-state "
           f"errors {[f'{c[0]:.2e}' for c in lane_checks]}, RK4 oracle "
-          f"{[f'{c[1]:.2e}' for c in lane_checks]}, launches {lanes_shapes}", flush=True)
+          f"{[f'{c[1]:.2e}' for c in lane_checks]}, launches {lanes_shapes}, {graph_note()} "
+          f"(before the graphs: {EARLIER['lanes']})", flush=True)
     if lane_status.tolist() != [int(ExitStatus.SUCCESS)] * LANES:
         fail("batched solve", f"lanes ended {lane_status.tolist()}")
     for lane, (final_err, oracle_err, cost_rel) in enumerate(lane_checks):
@@ -1024,6 +1250,99 @@ def main() -> None:
     if not all(e <= 1e-12 for e in driver_errs.values()):
         fail("batched solve", f"drivers differ between the card and the CPU: {driver_errs}")
     print(f"batched solve phase: {time.monotonic() - t_phase:.1f} s", flush=True)
+
+    # -- 13. graphs: every graphed evaluation against its eager run --------
+    t_phase = time.monotonic()
+    from sleipnir_tpu_torch.optimization.solver.util import cuda_graph
+
+    def graph_path(name, run):
+        """Run a path again with every graphed evaluation held against its
+        eager function; its iterations must equal the unchecked run's."""
+        cap = GRAPH_PATHS[name]
+        reset_graph_counts()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        with GraphCheck() as check:
+            iterations = run(cap)
+        torch.cuda.synchronize()
+        seconds = time.monotonic() - t0
+        summary = check.summary()
+        expected = path_iterations[name] if cap is None else cap
+        print(f"graphs, {name}: {iterations} iterations (unchecked run: {expected}), "
+              f"{seconds:.2f} s with the checks, {graph_note()}; per function (bitwise "
+              f"equal, held, largest relative difference): {summary}", flush=True)
+        if check.first_diff is not None:
+            fail("graphs", f"{name}: graphed and eager first differ at (function, call, "
+                 f"output) {check.first_diff}: {summary}")
+        if iterations != expected:
+            fail("graphs", f"{name}: {iterations} iterations, not {expected}")
+
+    def cart_pole_run(cap):
+        p = cart_pole_problem(N=N, total_time=TOTAL_TIME)[0]
+        p.solve(device="cuda")
+        return p.last_solve_stats.iterations
+
+    def flywheel_run(cap):
+        p = flywheel.flywheel_problem(N=FLYWHEEL_N, total_time=TOTAL_TIME)[0]
+        p.solve(device="cuda")
+        return p.last_solve_stats.iterations
+
+    def restoration_run(cap):
+        r_funcs, r_state, r_options, r_backend, _ = restoration_start(RESTORATION_N, dev)
+        return restore(r_funcs, r_state, r_options, parent_backend=r_backend)[-1]
+
+    def min_time_run(cap):
+        p = flywheel.flywheel_min_time_problem(N=MIN_TIME_N)[0]
+        p.solve(device="cuda", max_iterations=cap)
+        return p.last_solve_stats.iterations
+
+    def lanes_run(cap):
+        p = cart_pole_problem(N=N, total_time=TOTAL_TIME)[0]
+        return solve_ipm_batched(p, guesses, lanes_options)[3].iterations.tolist()
+
+    for name, run in (("cart-pole", cart_pole_run), ("flywheel", flywheel_run),
+                      ("restoration", restoration_run), ("minimum time", min_time_run),
+                      ("lanes", lanes_run)):
+        graph_path(name, run)
+
+    # A model-predictive re-solve: new values of the initial state and the
+    # reference reach the captured graphs of the cached solver, which
+    # capture nothing new and give what a fresh problem gives.
+    mpc, MPX, MPU, mpc_x0, mpc_r = flywheel.flywheel_mpc_problem(N=FLYWHEEL_N,
+                                                                  total_time=TOTAL_TIME)
+    reset_graph_counts()
+    t0 = time.monotonic()
+    first_status = mpc.solve(device="cuda")
+    torch.cuda.synchronize()
+    mpc_first_s, mpc_first_note = time.monotonic() - t0, graph_note()
+    # From the fresh problem's starting point, not the last solution.
+    MPX.set_value(np.zeros((1, FLYWHEEL_N + 1)))
+    MPU.set_value(np.zeros((1, FLYWHEEL_N + 1)))
+    mpc_x0.set_value(3.0)
+    mpc_r.set_value(5.0)
+    reset_graph_counts()
+    t0 = time.monotonic()
+    status = mpc.solve(device="cuda")
+    torch.cuda.synchronize()
+    mpc_s, mpc_note, mpc_captures = time.monotonic() - t0, graph_note(), cuda_graph.CAPTURES
+    mpc_iters = mpc.last_solve_stats.iterations
+    fresh, FRX, _FRU, fresh_x0, fresh_r = flywheel.flywheel_mpc_problem(N=FLYWHEEL_N,
+                                                                        total_time=TOTAL_TIME)
+    fresh_x0.set_value(3.0)
+    fresh_r.set_value(5.0)
+    fresh_status = fresh.solve(device="cuda")
+    mpc_diff = float(np.abs(MPX.value() - FRX.value()).max())
+    print(f"graphs, re-solve with changed parameters (flywheel N={FLYWHEEL_N}, x0 0 -> 3, r 10 "
+          f"-> 5): first solve {first_status} {mpc_first_s:.2f} s, {mpc_first_note}; re-solve "
+          f"{status}, {mpc_iters} iterations, {mpc_s:.2f} s, {mpc_note}; fresh problem "
+          f"{fresh_status}; largest difference {mpc_diff:.3e}, x_0 {MPX.value()[0, 0]}, "
+          f"x_N {MPX.value()[0, -1]:.9f}", flush=True)
+    if not (first_status == status == fresh_status == ExitStatus.SUCCESS):
+        fail("graphs", f"re-solve: {first_status}, {status}, {fresh_status}")
+    if mpc_captures != 0 or mpc_diff != 0.0 or not abs(MPX.value()[0, 0] - 3.0) <= 1e-9:
+        fail("graphs", f"re-solve: {mpc_captures} captures, {mpc_diff} from a fresh problem, "
+             f"x_0 {MPX.value()[0, 0]}")
+    print(f"graphs phase: {time.monotonic() - t_phase:.1f} s", flush=True)
 
     # -- results ----------------------------------------------------------
     path_shapes = (collections.Counter(fly_shapes) + collections.Counter(fr_shapes)

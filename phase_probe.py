@@ -23,16 +23,22 @@ iterations in three windows:
             take the most device time.
 
 A window that the solve does not reach is reported as such. Phases:
-`BandedBackend.eval_derivs` (colored derivative probes), `factor`
+`eval_derivs`, the problem evaluations that hold the derivatives (the
+graphed `evaluate`, `refresh`, `kkt_fallback` and the lanes' `lane_init`,
+each a CUDA graph replay on the card, and `BandedBackend.eval_derivs`
+itself wherever it runs outside them), `f,c_e,c_i`, the graphed
+evaluations of the line search (`trip`, `soc_trial`, `jump`, `trial_at`,
+`cost_at`, `values`, `stop_check`), `factor`
 (assembly, equilibration, the K1 kernel on the regularization ladder,
 inertia), `solve_refined` (three K2 solves), the same three of
 `DenseBackend` (dense derivatives, the blocked LDLᵀ of the ladder, three
 triangular-solve pairs), the compiled problem's f,
-c_e and c_i when called outside them (the line search), and `restore`
+c_e and c_i when called outside all of these, and `restore`
 (feasibility restoration, whatever it runs inside). Iteration counts
 include the restoration solver's iterations, as the JAX package counts
 them. The whole solve's wall time, its exit status, and the restoration
-entries with their time and iterations are reported as well.
+entries with their time and iterations, and the CUDA graphs' captures,
+replays and capture seconds, are reported as well.
 
 `flywheel_sqp` is the flywheel without input bounds (SQP on the banded
 backend), `flywheel_dense` its plain-Problem form with bounds (the dense
@@ -75,6 +81,7 @@ from sleipnir_tpu_torch.models.flywheel import (
 from sleipnir_tpu_torch.optimization.solver.kkt_backend import DenseBackend
 from sleipnir_tpu_torch.optimization.solver.kkt_banded import BandedBackend
 from sleipnir_tpu_torch.optimization.solver.options import Options
+from sleipnir_tpu_torch.optimization.solver.util import cuda_graph
 from sleipnir_tpu_torch.parallel import batch as batch_module
 from sleipnir_tpu_torch.parallel.lanes import _BandedLanes
 
@@ -88,6 +95,9 @@ PHASES = {
 #: Phases timed inside another phase, reported as a part of it: name ->
 #: the outer phase.
 INNER_PHASES = {BandedBackend: {"_border_schur": "factor"}}
+#: The graphed problem evaluations that hold the derivatives; the other
+#: graphed functions are the line search's evaluations, "f,c_e,c_i".
+DERIVATIVE_GRAPHS = {"evaluate", "refresh", "kkt_fallback", "lane_init"}
 PROBLEMS = {
     "cart_pole": cart_pole_problem,
     "flywheel": flywheel_problem,
@@ -136,6 +146,31 @@ class Probe:
             return out
 
         setattr(owner, name, timed)
+
+    def wrap_graphed(self) -> None:
+        """Time the graphed problem evaluations under their phase names."""
+        call = cuda_graph.Graphed.__call__
+
+        def phase(graphed):
+            return "eval_derivs" if graphed.name in DERIVATIVE_GRAPHS else "f,c_e,c_i"
+
+        def timed(graphed, *args):
+            if self.window != 1 or self.depth:
+                return call(graphed, *args)
+            self.sync()
+            self.depth += 1
+            t0 = time.perf_counter()
+            try:
+                out = call(graphed, *args)
+                self.sync()
+            finally:
+                self.depth -= 1
+            name = phase(graphed)
+            self.seconds[name] += time.perf_counter() - t0
+            self.calls[name] += 1
+            return out
+
+        cuda_graph.Graphed.__call__ = timed
 
     def count_restorations(self) -> None:
         inner = problem_module.restore
@@ -205,6 +240,11 @@ def report_timed(probe: Probe, iterations: int) -> None:
           f"{100 * rest / seconds:5.1f}%", flush=True)
 
 
+def report_graphs() -> None:
+    print(f"CUDA graphs: {cuda_graph.CAPTURES} captures ({cuda_graph.CAPTURE_SECONDS:.3f} s with "
+          f"their eager warm-ups), {cuda_graph.REPLAYS} replays", flush=True)
+
+
 def report_profiled(probe: Probe) -> None:
     profiled = probe.span(2)
     if profiled is None:
@@ -263,6 +303,7 @@ def batched(probe: Probe, device: torch.device, n_steps: int, lanes: int) -> Non
           f"iterations, solve {wall:.3f} s ({wall * 1e3 / max(steps[0], 1):.1f} ms/batched "
           f"iteration), host syncs/batched iteration "
           f"{(syncs.count - before) / max(steps[0], 1):.3f}", flush=True)
+    report_graphs()
     report_timed(probe, steps[0])
     report_profiled(probe)
 
@@ -286,6 +327,7 @@ def restoration(probe: Probe, device: torch.device, n: int) -> None:
     probe.window = 3
     print(f"restoration cart-pole N={n} on {device.type}: {outcome} after {iterations} "
           f"iterations, violation {v0:.6g} -> {violation(x_new):.6g}", flush=True)
+    report_graphs()
     report_timed(probe, iterations)
 
 
@@ -318,6 +360,8 @@ def main() -> None:
     for owner, names in INNER_PHASES.items():
         for name in names:
             probe.wrap(owner, name, nested=True)
+    probe.wrap_graphed()
+    cuda_graph.reset_counters()
     run_solver = problem_module.run_solver
 
     def run_solver_with_hook(state, step, options, **kwargs):
@@ -349,6 +393,7 @@ def main() -> None:
           f"host syncs/iteration {stats.host_syncs_per_iteration:.2f}", flush=True)
     print(f"restoration: {len(probe.restorations)} entries, {restore_it} iterations, "
           f"{restore_s:.3f} s", flush=True)
+    report_graphs()
 
     report_timed(probe, stats.iterations)
     report_profiled(probe)

@@ -592,7 +592,10 @@ class CompiledEval:
         return cached
 
     def cache_on(self, key, array: np.ndarray, device: torch.device) -> None:
-        self._device_cache[(key, device)] = torch.as_tensor(array, device=device)
+        # Keyed by the tensor's own device ("cuda:0" for "cuda"), which is
+        # what an evaluation's tensors report when they look it up.
+        t = torch.as_tensor(array, device=device)
+        self._device_cache[(key, t.device)] = t
 
     def prepare(self, device: torch.device) -> None:
         """Move every constant and index vector of the DAGs to `device`."""

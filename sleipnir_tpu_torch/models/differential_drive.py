@@ -39,6 +39,13 @@ A = np.array([[_A1, _A2], [_A2, _A1]])
 B = np.array([[_B1, _B2], [_B2, _B1]])
 
 
+def _on_device(M: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    """The constant matrix M on `like`'s device, made there from scalars
+    with no host-to-device copy (a CUDA graph of the dynamics holds it)."""
+    one = like.new_ones(())
+    return torch.stack([torch.stack([one * float(v) for v in row]) for row in M])
+
+
 def dynamics(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """Differential drive ODE on tensors: x (5, 1), u (2, 1) -> (5, 1).
 
@@ -46,9 +53,7 @@ def dynamics(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     so it rounds as the JAX CPU reference does."""
     v = (x[3, 0] + x[4, 0]) / 2.0
     heading = x[2, 0]
-    A_t = torch.as_tensor(A, dtype=x.dtype, device=x.device)
-    B_t = torch.as_tensor(B, dtype=x.dtype, device=x.device)
-    vel = A_t @ x[3:5, :] + B_t @ u
+    vel = _on_device(A, x) @ x[3:5, :] + _on_device(B, x) @ u
     return torch.cat(
         [
             torch.stack(

@@ -18,6 +18,7 @@ import math
 
 import numpy as np
 
+from sleipnir_tpu_torch.autodiff.variable import Variable
 from sleipnir_tpu_torch.optimization.ocp import (
     OCP,
     DynamicsType,
@@ -77,6 +78,33 @@ def flywheel_problem(N: int = 1000, total_time: float = 5.0, fast: bool = True):
     err = r - X
     problem.minimize((err**2).sum())
     return problem, X, U
+
+
+def flywheel_mpc_problem(N: int = 1000, total_time: float = 5.0):
+    """The flywheel tracking OCP as a model predictive controller re-solves
+    it: the measured initial state x₀ and the reference r are parameters
+    (variables outside the problem), so `set_value` on them and a new
+    `solve()` reuse the compiled solver. Starts at x₀ = 0, r = 10, which is
+    `flywheel_problem`. Returns (ocp, X, U, x0, r)."""
+    dt = total_time / N
+    A = math.exp(-dt)
+    B = 1.0 - math.exp(-dt)
+
+    def discrete(x, u):
+        return A * x + B * u
+
+    ocp = OCP(
+        1, 1, dt, N, discrete, DynamicsType.DISCRETE, TimestepMethod.FIXED,
+        TranscriptionMethod.DIRECT_TRANSCRIPTION,
+    )
+    x0, r = Variable(), Variable()
+    x0.set_value(0.0)
+    r.set_value(10.0)
+    ocp.constrain_initial_state(x0)
+    ocp.subject_to(ocp.U() >= -12.0)
+    ocp.subject_to(ocp.U() <= 12.0)
+    ocp.minimize(((r - ocp.X()) ** 2).sum())
+    return ocp, ocp.X(), ocp.U(), x0, r
 
 
 def flywheel_unbounded_problem(N: int = 1000, total_time: float = 5.0):

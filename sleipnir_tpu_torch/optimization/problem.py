@@ -10,12 +10,14 @@ Problems with inequality constraints run the interior-point method,
 equality-only problems SQP, unconstrained ones Newton's method, each on
 the banded KKT backend where an OCP's stage structure allows it and on
 the dense one otherwise, with feasibility restoration of the same kind.
-Diagnostics printing and sparsity recording raise NotImplementedError
-naming their ROADMAP item.
+`solve(diagnostics=True)` prints the reference's tables and `spy=True`
+records the derivatives' sparsity patterns to `.spy` files, as the JAX
+package does.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Callable
 
@@ -60,6 +62,9 @@ from sleipnir_tpu_torch.optimization.solver.util.host_sync import HostSyncs
 from sleipnir_tpu_torch.optimization.solver.util.problem_scaling import (
     ProblemScaling,
 )
+from sleipnir_tpu_torch.util import print_diagnostics
+from sleipnir_tpu_torch.util.profiler import SetupProfiler, SolveProfiler
+from sleipnir_tpu_torch.util.spy import Spy
 
 
 def resolve_device(name: str) -> torch.device:
@@ -93,6 +98,121 @@ class _FnBlock:
 
 def _rows(block) -> int:
     return block.rows if isinstance(block, _FnBlock) else block.size
+
+
+class _DiagProfilers:
+    """Setup/solve profiler bundle printed under diagnostics=True
+    (reference util/profiler.hpp + print_diagnostics.hpp:289-330; wired
+    like reference problem.hpp's setup_profilers/solve_profilers)."""
+
+    def __init__(self, enabled: bool) -> None:
+        self.enabled = enabled
+        self.setup: list = []
+        self.solve: dict | None = None
+        if enabled:
+            total = SetupProfiler("setup")
+            total.start()
+            self.setup.append(total)
+            self.solve = {
+                "solve": SolveProfiler("solve"),
+                "iterate": SolveProfiler("  ↳ iterate"),
+                "restoration": SolveProfiler("  ↳ restoration"),
+                "callbacks": SolveProfiler("  ↳ callbacks"),
+            }
+
+    @contextlib.contextmanager
+    def phase(self, name: str):
+        if not self.enabled:
+            yield
+            return
+        prof = SetupProfiler("  ↳ " + name)
+        prof.start()
+        try:
+            yield
+        finally:
+            prof.stop()
+            self.setup.append(prof)
+
+    def report(self) -> None:
+        if not self.enabled:
+            return
+        self.setup[0].stop()
+        print()
+        print_diagnostics.print_setup_diagnostics(self.setup)
+        profs = [self.solve["solve"]] + [
+            p for k, p in self.solve.items() if k != "solve" and p.count > 0
+        ]
+        print_diagnostics.print_solver_diagnostics(profs)
+
+
+def _diagnostics_fn(kind: str, syncs: HostSyncs):
+    """The iteration table's row printer for `run_solver`: the row's
+    scalars are gathered on the device and read in one host read."""
+    last = {"t": time.perf_counter()}
+
+    def diag(prev, after):
+        now = time.perf_counter()
+        dt_ms = (now - last["t"]) * 1e3
+        last["t"] = now
+        zero, one = after.f.new_zeros(()), after.f.new_ones(())
+        infeas = complem = mu = zero
+        alpha_z = one
+        if kind == "ipm":
+            infeas = torch.sum(torch.abs(after.c_e)) + torch.sum(torch.abs(after.c_i - after.s))
+            complem = after.s @ after.z
+            mu, alpha_z = after.mu, after.alpha_z
+        elif kind == "sqp":
+            infeas = torch.sum(torch.abs(after.c_e))
+            alpha_z = after.alpha
+        (error, cost, infeas, complem, mu, delta, gamma, p_pr, p_du, alpha, alpha_max,
+         alpha_z) = syncs.read(
+            after.E0, after.f, infeas, complem, mu, after.delta, after.gamma,
+            getattr(after, "p_pr_inf", zero), getattr(after, "p_du_inf", zero),
+            after.alpha, getattr(after, "alpha_max", one), alpha_z,
+        )
+        print_diagnostics.print_iteration_diagnostics(
+            int(prev.iterations), print_diagnostics.NORMAL, dt_ms, error, cost, infeas,
+            complem, mu, delta, gamma, p_pr, p_du, alpha, alpha_max, 0.5, alpha_z,
+        )
+
+    return diag
+
+
+def _spy_writers(n, me, mi, with_inequality):
+    writers = {
+        "H": Spy("H.spy", "Hessian", "Decision variables", "Decision variables", n, n),
+        "A_e": Spy(
+            "A_e.spy", "Equality constraint Jacobian", "Constraints",
+            "Decision variables", me, n,
+        ),
+    }
+    if with_inequality:
+        writers["A_i"] = Spy(
+            "A_i.spy", "Inequality constraint Jacobian", "Constraints",
+            "Decision variables", mi, n,
+        )
+    return writers
+
+
+class _SpyCallback:
+    """The per-iteration sparsity recorder installed by solve(spy=True)
+    (reference problem.hpp:569-594): one frame of H, Aₑ (and Aᵢ) per
+    iteration."""
+
+    def __init__(self, comp: dict, with_inequality: bool) -> None:
+        self.with_inequality = with_inequality
+        self.writers = _spy_writers(comp["n"], comp["me"], comp["mi"], with_inequality)
+
+    def __call__(self, info: IterationInfo) -> bool:
+        self.writers["H"].add(info.H)
+        self.writers["A_e"].add(info.A_e)
+        if self.with_inequality:
+            self.writers["A_i"].add(info.A_i)
+        return False
+
+    def close(self) -> None:
+        for w in self.writers.values():
+            w.close()
 
 
 class SolveStats:
@@ -259,15 +379,21 @@ class Problem:
         if kwargs:
             fields = {k: getattr(options, k) for k in Options.__dataclass_fields__}
             options = Options(**{**fields, **kwargs})
-        if options.diagnostics or spy:
-            raise NotImplementedError(
-                "diagnostics printing and sparsity recording are not ported "
-                "yet (ROADMAP queue 1 item 6: util/{profiler,print_diagnostics,spy})"
-            )
 
         f_type = self.cost_function_type()
         c_e_type = self.equality_constraint_type()
         c_i_type = self.inequality_constraint_type()
+
+        if options.diagnostics:
+            print_diagnostics.print_exit_conditions(options)
+            print_diagnostics.print_problem_analysis(
+                int(self._all_ids().shape[0]),
+                f_type,
+                sum(_rows(b) for b in self._equality),
+                c_e_type,
+                sum(_rows(b) for b in self._inequality),
+                c_i_type,
+            )
 
         # No-op problem (reference problem.hpp:303-313)
         if (
@@ -275,6 +401,8 @@ class Problem:
             and c_e_type <= ExpressionType.CONSTANT
             and c_i_type <= ExpressionType.CONSTANT
         ):
+            if options.diagnostics:
+                print("\nInvoking no-op solver\n")
             return ExitStatus.SUCCESS
 
         start_time = time.monotonic()
@@ -283,11 +411,16 @@ class Problem:
         x0 = ex._registry.get(all_ids).astype(np.float64)
         params = comp["compiled"].gather_params()
         if comp["mi"] > 0:
-            status, final_x = self._solve_ipm(comp, x0, params, options, start_time)
+            kind, solve = "IPM", self._solve_ipm
         elif comp["me"] > 0:
-            status, final_x = self._solve_sqp(comp, x0, params, options, start_time)
+            kind, solve = "SQP", self._solve_sqp
         else:
-            status, final_x = self._solve_newton(comp, x0, params, options, start_time)
+            kind, solve = "Newton", self._solve_newton
+        if options.diagnostics:
+            print(f"\nInvoking {kind} solver\n")
+        status, final_x = solve(comp, x0, params, options, start_time, spy)
+        if options.diagnostics:
+            print(f"\nExit: {status}")
 
         # Write the solution back into the decision variables
         # (reference problem.hpp:676).
@@ -343,8 +476,10 @@ class Problem:
 
     # -- Newton (no constraints) -------------------------------------------
 
-    def _solve_newton(self, comp, x0, params, options, start_time):
-        """(reference problem.hpp:335-402)"""
+    def _solve_newton(self, comp, x0, params, options, start_time, spy=False):
+        """(reference problem.hpp:335-402). `spy` records nothing here:
+        the JAX package records no Newton sparsity either."""
+        prof = _DiagProfilers(options.diagnostics)
         device = resolve_device(options.device)
         key = self._cache_key("newton", options, device)
         cached = self._solver_cache.get(key)
@@ -368,14 +503,21 @@ class Problem:
             return torch.as_tensor(a, dtype=torch.float64, device=device)
 
         # Scaling at the starting point (reference problem.hpp:379-382)
-        scaling = ProblemScaling.for_newton(g_fn(on_device(x0), on_device(params)).cpu().numpy())
-        sc = ScalingArrays(f=scaling.f, c_e=np.zeros(0), c_i=np.zeros(0))
+        with prof.phase("problem scaling"):
+            g0 = g_fn(on_device(x0), on_device(params)).cpu().numpy()
+            scaling = ProblemScaling.for_newton(g0)
+            sc = ScalingArrays(f=scaling.f, c_e=np.zeros(0), c_i=np.zeros(0))
+        with prof.phase("initial state"):
+            state = init(x0, params, sc)
         state = run_solver(
-            init(x0, params, sc), step, options,
+            state, step, options,
             callbacks=self._persistent_callbacks + self._callbacks,
             info_fn=lambda st: self._newton_info(st, backend),
+            diagnostics_fn=_diagnostics_fn("newton", backend.syncs),
             start_time=start_time,
+            profilers=prof.solve,
         )
+        prof.report()
         return self._record(state, backend, syncs_before)
 
     @staticmethod
@@ -414,8 +556,9 @@ class Problem:
         cached = self._solver_cache[key] = (init, step, resume, funcs, g_fn, backend)
         return cached
 
-    def _solve_sqp(self, comp, x0, params, options, start_time):
+    def _solve_sqp(self, comp, x0, params, options, start_time, spy=False):
         """(reference problem.hpp:403-511)"""
+        prof = _DiagProfilers(options.diagnostics)
         device = resolve_device(options.device)
         init, step, resume, funcs, g_fn, backend = self._prepare_sqp(comp, options, device)
         syncs_before = backend.syncs.count
@@ -426,13 +569,14 @@ class Problem:
 
         # Scaling at the starting point (reference problem.hpp:473-477):
         # per-row Jacobian norms from the banded probes, or the dense Aₑ.
-        if isinstance(backend, BandedBackend):
-            scaling = self._ipm_scaling(g_fn, backend, x0, params)[0]
-        else:
-            xd, pd = on_device(x0), on_device(params)
-            A_e0 = funcs.A_e(xd, pd, self._unit_scaling(comp, device)).cpu().numpy()
-            scaling = ProblemScaling.for_sqp(g_fn(xd, pd).cpu().numpy(), A_e0)
-        sc = ScalingArrays(f=scaling.f, c_e=scaling.c_e, c_i=np.zeros(0))
+        with prof.phase("problem scaling"):
+            if isinstance(backend, BandedBackend):
+                scaling = self._ipm_scaling(g_fn, backend, x0, params)[0]
+            else:
+                xd, pd = on_device(x0), on_device(params)
+                A_e0 = funcs.A_e(xd, pd, self._unit_scaling(comp, device)).cpu().numpy()
+                scaling = ProblemScaling.for_sqp(g_fn(xd, pd).cpu().numpy(), A_e0)
+            sc = ScalingArrays(f=scaling.f, c_e=scaling.c_e, c_i=np.zeros(0))
 
         def restoration_handler(state, st_time):
             # The SQP callbacks as an interior-point parent without
@@ -453,13 +597,26 @@ class Problem:
                 return resume(state, x_n, y_n, iters)
             return state._replace(status=int(outcome), x=on_device(x_n))
 
-        state = run_solver(
-            init(x0, params, sc), step, options,
-            callbacks=self._persistent_callbacks + self._callbacks,
-            info_fn=lambda st: self._sqp_info(st, backend),
-            restoration_handler=restoration_handler,
-            start_time=start_time,
-        )
+        callbacks = self._persistent_callbacks + self._callbacks
+        spy_cb = _SpyCallback(comp, with_inequality=False) if spy else None
+        if spy_cb is not None:
+            callbacks = callbacks + [spy_cb]
+        with prof.phase("initial state"):
+            state = init(x0, params, sc)
+        try:
+            state = run_solver(
+                state, step, options,
+                callbacks=callbacks,
+                info_fn=lambda st: self._sqp_info(st, backend),
+                restoration_handler=restoration_handler,
+                diagnostics_fn=_diagnostics_fn("sqp", backend.syncs),
+                start_time=start_time,
+                profilers=prof.solve,
+            )
+        finally:
+            if spy_cb is not None:
+                spy_cb.close()
+        prof.report()
         return self._record(state, backend, syncs_before)
 
     @staticmethod
@@ -554,10 +711,12 @@ class Problem:
         A_i0 = funcs.A_i(xd, pd, ones).cpu().numpy()
         return ProblemScaling.for_ipm(g_fn(xd, pd).cpu().numpy(), A_e0, A_i0), A_i0
 
-    def _solve_ipm(self, comp, x0, params, options, start_time):
+    def _solve_ipm(self, comp, x0, params, options, start_time, spy=False):
         """(reference problem.hpp:512-669)"""
+        prof = _DiagProfilers(options.diagnostics)
         device = resolve_device(options.device)
-        bundle = self._prepare_ipm(comp, options, device)
+        with prof.phase("compile solver"):
+            bundle = self._prepare_ipm(comp, options, device)
         init, step, resume, funcs, g_fn, backend = bundle
         syncs_before = backend.syncs.count
         banded = isinstance(backend, BandedBackend)
@@ -570,14 +729,16 @@ class Problem:
         # This set-up runs once per solve, on the solve device. The banded
         # path never materializes a Jacobian; the dense one scales from
         # Aₑ and Aᵢ at x0 (reference problem.hpp:612-616).
-        c_i0 = comp["c_i"](on_device(x0), pd).cpu().numpy()
-        scaling, rows = self.compute_ipm_scaling(comp, bundle, x0, params)
-        if banded:
-            ci_rows, ci_cols = rows
-            bounds = get_bounds_rows(x0, c_i0, ci_cols, ci_rows, comp["ineq_row_linear"])
-        else:
-            bounds = get_bounds(x0, c_i0, rows, comp["ineq_row_linear"])
-        sc = ScalingArrays(f=scaling.f, c_e=scaling.c_e, c_i=scaling.c_i)
+        with prof.phase("problem scaling"):
+            scaling, rows = self.compute_ipm_scaling(comp, bundle, x0, params)
+            sc = ScalingArrays(f=scaling.f, c_e=scaling.c_e, c_i=scaling.c_i)
+        with prof.phase("bound detection"):
+            c_i0 = comp["c_i"](on_device(x0), pd).cpu().numpy()
+            if banded:
+                ci_rows, ci_cols = rows
+                bounds = get_bounds_rows(x0, c_i0, ci_cols, ci_rows, comp["ineq_row_linear"])
+            else:
+                bounds = get_bounds(x0, c_i0, rows, comp["ineq_row_linear"])
 
         # Bound conflict check (reference problem.hpp:597-610)
         if bounds.conflicting_bound_indices:
@@ -608,16 +769,28 @@ class Problem:
                 return resume(state, x_n, s_n, y_n, z_n, iters)
             return state._replace(status=int(outcome), x=on_device(x_n), s=on_device(s_n))
 
-        state = init(x0, s0, y0, z0, mu0, 0, params, sc)
-        state = run_solver(
-            state,
-            step,
-            options,
-            callbacks=self._persistent_callbacks + self._callbacks,
-            info_fn=lambda st: self._ipm_info(st, backend),
-            restoration_handler=restoration_handler,
-            start_time=start_time,
-        )
+        callbacks = self._persistent_callbacks + self._callbacks
+        spy_cb = _SpyCallback(comp, with_inequality=True) if spy else None
+        if spy_cb is not None:
+            callbacks = callbacks + [spy_cb]
+        with prof.phase("initial state"):
+            state = init(x0, s0, y0, z0, mu0, 0, params, sc)
+        try:
+            state = run_solver(
+                state,
+                step,
+                options,
+                callbacks=callbacks,
+                info_fn=lambda st: self._ipm_info(st, backend),
+                restoration_handler=restoration_handler,
+                diagnostics_fn=_diagnostics_fn("ipm", backend.syncs),
+                start_time=start_time,
+                profilers=prof.solve,
+            )
+        finally:
+            if spy_cb is not None:
+                spy_cb.close()
+        prof.report()
         return self._record(state, backend, syncs_before)
 
     @staticmethod

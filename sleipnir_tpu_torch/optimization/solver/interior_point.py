@@ -6,7 +6,10 @@ filter line search). The arithmetic is the JAX step's, on torch tensors.
 Where the JAX step branches on device with `lax.cond`/`lax.while_loop`
 (line search, second-order corrections, barrier update), this one reads
 the deciding booleans to the host through `HostSyncs` and branches in
-Python. Counters (iterations, status, streaks) are host integers.
+Python. Counters (iterations, status, streaks) are host integers. The
+problem evaluations of the step (values and derivatives at a point, a
+line-search trial, the α ladder, the KKT-error fallback) are functions of
+tensors that replay as CUDA graphs on the card (`util/cuda_graph.py`).
 
 Feasibility restoration solves a problem of another shape, so a step
 that needs it ends with status FEASIBILITY_RESTORATION_REQUESTED and
@@ -33,6 +36,7 @@ from sleipnir_tpu_torch.optimization.solver.funcs import (
     bind,
 )
 from sleipnir_tpu_torch.optimization.solver.options import Options
+from sleipnir_tpu_torch.optimization.solver.util.cuda_graph import at
 from sleipnir_tpu_torch.optimization.solver.util.filter import (
     FilterState,
     check_acceptance,
@@ -151,7 +155,7 @@ def make_interior_point(
 
     `backend` is the KKT backend (`kkt_backend.DenseBackend`, or
     `kkt_banded.BandedBackend` for direct-transcription OCP structure).
-    `stop_check(state) -> bool tensor` is read at the top of every
+    `stop_check(x, s, params) -> bool tensor` is read at the top of every
     iteration; when it holds the solve ends as CALLBACK_REQUESTED_STOP
     (feasibility restoration's early exit, reference
     interior_point.hpp:738-756)."""
@@ -171,15 +175,147 @@ def make_interior_point(
     def tensor(a):
         return torch.as_tensor(a, dtype=_F64, device=device)
 
+    # -- problem evaluations (CUDA graphs on the card) ----------------------
+
+    graphs = backend.graphs
+
+    def trial_at(F, a, px, ps, x, s, feasible_sub):
+        tx = x + a * px
+        tci = F.c_i(tx)
+        ts = torch.where(feasible_sub, tci, s + a * ps)
+        return tx, ts, F.f(tx), F.c_e(tx), tci
+
+    @graphs.wrap
+    def evaluate(x, y, z, params, sc):
+        """f, g, cₑ, cᵢ and the backend's derivatives at x."""
+        F = bind(funcs, params, sc)
+        return F.f(x), F.g(x), F.c_e(x), F.c_i(x), backend.eval_derivs(F, x, y, z)
+
+    @graphs.wrap
+    def values(x, params, sc):
+        F = bind(funcs, params, sc)
+        return F.f(x), F.c_e(x), F.c_i(x)
+
+    @graphs.wrap
+    def refresh(t: _Trial, params, sc):
+        """Derivatives and KKT error at an accepted iterate (reference
+        :808-826)."""
+        F = bind(funcs, params, sc)
+        g1 = F.g(t.x)
+        d1 = backend.eval_derivs(F, t.x, t.y, t.z)
+        AeT_y1, AiT_z1 = backend.AeT(d1, t.y), backend.AiT(d1, t.z)
+        E0 = unscaled_kkt_error_ipm_products(
+            sc, g1, AeT_y1, AiT_z1, t.c_e, t.c_i, t.s, t.y, t.z, t.x.new_zeros(())
+        )
+        return g1, d1, AeT_y1, AiT_z1, E0
+
+    @graphs.wrap
+    def trip(alpha, alpha_z, p_x, p_s, p_y, p_z, x, s, y, z, mu, feasible_sub, filt,
+             cost, cviol, D_phi, params, sc):
+        """One trial of the backtracking line search (reference :512-556)."""
+        tx, ts, tf, tce, tci = trial_at(bind(funcs, params, sc), alpha, p_x, p_s, x, s,
+                                        feasible_sub)
+        nonfinite = ~(torch.isfinite(tf) & torch.isfinite(tce).all() & torch.isfinite(tci).all())
+        next_viol = viol(tce, tci, ts)
+        acc, filt1 = try_add(filt, cost, cviol, phi(tf, ts, mu), next_viol, D_phi, alpha)
+        t = _Trial(tx, ts, y + alpha * p_y, z + alpha_z * p_z, tf, tce, tci)
+        return t, nonfinite, next_viol, acc, filt1
+
+    @graphs.wrap
+    def soc_trial(x, s, y, z, p_x, p_s, p_y, p_z, tau, mu, filt, cost, cviol, D_phi, alpha,
+                  params, sc):
+        """A second-order correction's trial (reference :617-654)."""
+        F = bind(funcs, params, sc)
+        a = fraction_to_the_boundary(s, p_s, tau)
+        az = fraction_to_the_boundary(z, p_z, tau)
+        tx, ts = x + a * p_x, s + a * p_s
+        tf, tce, tci = F.f(tx), F.c_e(tx), F.c_i(tx)
+        # Equality duals step with the primal α (as the line search's).
+        t = _Trial(tx, ts, y + a * p_y, z + az * p_z, tf, tce, tci)
+        nv = viol(tce, tci, ts)
+        acc, filt1 = try_add(filt, cost, cviol, phi(tf, ts, mu), nv, D_phi, alpha)
+        return a, az, t, nv, acc, filt1
+
+    @graphs.wrap
+    def jump(alpha, p_x, p_s, x, s, mu, feasible_sub, filt_after, reset_counted: bool,
+             cost, cviol, D_phi, params, sc):
+        """Batched backtracking ladder (JAX step :587-656): evaluate all
+        remaining halvings of α against the current filter at once —
+        filter entries only change on acceptance, which ends the
+        backtracking — and land on the first candidate the sequential
+        loop would stop at. `reset_counted` is whether the full-step
+        rejection counter has reached 4. Returns (α,
+        last_rejection_due_to_filter)."""
+        F = bind(funcs, params, sc)
+        idx = torch.arange(MAX_BACKTRACKS, device=x.device)
+        alphas = alpha * ALPHA_REDUCTION_FACTOR ** torch.arange(
+            1, MAX_BACKTRACKS + 1, dtype=_F64, device=x.device
+        )
+        below = alphas * ALPHA_REDUCTION_FACTOR < ALPHA_MIN
+        jlast = torch.argmax(below.to(torch.uint8))
+
+        def merit(a):
+            tx, ts, tf, tce, tci = trial_at(F, a, p_x, p_s, x, s, feasible_sub)
+            return phi(tf, ts, mu), viol(tce, tci, ts)
+
+        tphis, tviols = vmap(merit)(alphas)
+        accs, rejected_pres, in_filters, finites, _sw, _ar = check_acceptance(
+            filt_after, cost, cviol, tphis, tviols, D_phi, alphas
+        )
+        rejf = finites & ~rejected_pres & in_filters
+        reset_possible = reset_counted & (filt_after.max_viol > cviol / 10.0)
+        stop = accs | (reset_possible & ~accs & rejf)
+        stop = (stop & (idx <= jlast)) | (idx == jlast)
+        jstop = torch.argmax(stop.to(torch.uint8))
+        # last_rejection_due_to_filter entering the landing trip: set by
+        # the last finite rejected trial jumped over.
+        prior = (idx < jstop) & finites
+        lastp = torch.max(torch.where(prior, idx, -1))
+        flag = torch.where(
+            lastp >= 0,
+            at(rejf, torch.clamp(lastp, min=0)),
+            filt_after.last_rejection_due_to_filter,
+        )
+        return at(alphas, jstop), flag
+
+    @graphs.wrap
+    def kkt_fallback(x, s, y, z, f, c_e, c_i, g, derivs, mu, alpha_max, alpha_z,
+                     p_x, p_s, p_y, p_z, params, sc):
+        """Whether the α_max step reduces the 1-norm KKT error (reference
+        :691-716), and that step's trial."""
+        F = bind(funcs, params, sc)
+        cur_err = kkt_error_ipm_one_products(
+            g, backend.AeT(derivs, y), backend.AiT(derivs, z), c_e, c_i, s, y, z, mu
+        )
+        tx3, ts3 = x + alpha_max * p_x, s + alpha_max * p_s
+        tf3, tce3, tci3, g3 = F.f(tx3), F.c_e(tx3), F.c_i(tx3), F.g(tx3)
+        # The Jacobians are independent of the duals: one evaluation
+        # at tx3 serves both candidates below.
+        d3 = backend.eval_derivs(F, tx3, y, z)
+        tz3 = z + alpha_z * p_z
+
+        def err_with(ay):
+            ty = y + ay * p_y
+            return kkt_error_ipm_one_products(
+                g3, backend.AeT(d3, ty), backend.AiT(d3, tz3), tce3, tci3, ts3, ty, tz3, mu
+            )
+
+        # Candidate y-step sizes: the reference's α_z and Ipopt's primal
+        # α; the lower 1-norm KKT error wins.
+        err_a, err_b = err_with(alpha_z), err_with(alpha_max)
+        ay_best = torch.where(err_a <= err_b, alpha_z, alpha_max)
+        ok = torch.minimum(err_a, err_b) <= 0.999 * cur_err
+        return ok, _Trial(tx3, ts3, y + ay_best * p_y, tz3, tf3, tce3, tci3)
+
+    stop_graph = graphs.wrap(stop_check, "stop_check") if stop_check is not None else None
+
     # -- init --------------------------------------------------------------
 
     def init(x0, s0, y0, z0, mu0, iterations0, params, scaling) -> IPMState:
         params = tensor(params)
         scaling = ScalingArrays(*(tensor(a) for a in scaling))
-        F = bind(funcs, params, scaling)
         x0, s0, y0, z0 = (tensor(a) for a in (x0, s0, y0, z0))
-        f, g, c_e, c_i = F.f(x0), F.g(x0), F.c_e(x0), F.c_i(x0)
-        derivs = backend.eval_derivs(F, x0, y0, z0)
+        f, g, c_e, c_i, derivs = evaluate(x0, y0, z0, params, scaling)
         finite = (
             torch.isfinite(f)
             & torch.isfinite(g).all()
@@ -224,14 +360,7 @@ def make_interior_point(
     def finish_iteration(st: IPMState, t: _Trial, iterations: int) -> IPMState:
         """Refresh derivatives, the KKT error and the barrier parameter
         after an accepted step (reference :808-862)."""
-        F = bind(funcs, st.params, st.scaling)
-        g1 = F.g(t.x)
-        derivs1 = backend.eval_derivs(F, t.x, t.y, t.z)
-        AeT_y1 = backend.AeT(derivs1, t.y)
-        AiT_z1 = backend.AiT(derivs1, t.z)
-        E0 = unscaled_kkt_error_ipm_products(
-            st.scaling, g1, AeT_y1, AiT_z1, t.c_e, t.c_i, t.s, t.y, t.z, tensor(0.0)
-        )
+        g1, derivs1, AeT_y1, AiT_z1, E0 = refresh(t, st.params, st.scaling)
 
         # Barrier parameter minimum μ_min = d_f·tol/10 (reference :294)
         mu_min = st.scaling.f * tol / 10.0
@@ -261,7 +390,7 @@ def make_interior_point(
         )
 
     def iteration_body(st: IPMState) -> IPMState:
-        F = bind(funcs, st.params, st.scaling)
+        params, sc = st.params, st.scaling
         x, s, y, z = st.x, st.s, st.y, st.z
         mu, tau = st.mu, st.tau
         f, c_e, c_i = st.f, st.c_e, st.c_i
@@ -308,79 +437,6 @@ def make_interior_point(
             else torch.zeros((), dtype=torch.bool, device=device)
         )
 
-        def trial_at(a, px, ps):
-            tx = x + a * px
-            tci = F.c_i(tx)
-            ts = torch.where(feasible_sub, tci, s + a * ps)
-            return tx, ts, F.f(tx), F.c_e(tx), tci
-
-        def jump(alpha, px, ps, filt_after, fsrc):
-            """Batched backtracking ladder (JAX step :587-656): evaluate all
-            remaining halvings of α against the current filter at once —
-            filter entries only change on acceptance, which ends the
-            backtracking — and land on the first candidate the sequential
-            loop would stop at. Returns (α, last_rejection_due_to_filter)."""
-            idx = torch.arange(MAX_BACKTRACKS, device=device)
-            alphas = alpha * ALPHA_REDUCTION_FACTOR ** torch.arange(
-                1, MAX_BACKTRACKS + 1, dtype=_F64, device=device
-            )
-            below = alphas * ALPHA_REDUCTION_FACTOR < ALPHA_MIN
-            jlast = torch.argmax(below.to(torch.uint8))
-
-            def merit(a):
-                tx, ts, tf, tce, tci = trial_at(a, px, ps)
-                return phi(tf, ts, mu), viol(tce, tci, ts)
-
-            tphis, tviols = vmap(merit)(alphas)
-            accs, rejected_pres, in_filters, finites, _sw, _ar = check_acceptance(
-                filt_after, current_cost, current_viol, tphis, tviols, D_phi, alphas
-            )
-            rejf = finites & ~rejected_pres & in_filters
-            reset_possible = (fsrc >= 4) & (filt_after.max_viol > current_viol / 10.0)
-            stop = accs | (reset_possible & ~accs & rejf)
-            stop = (stop & (idx <= jlast)) | (idx == jlast)
-            jstop = torch.argmax(stop.to(torch.uint8))
-            # last_rejection_due_to_filter entering the landing trip: set by
-            # the last finite rejected trial jumped over.
-            prior = (idx < jstop) & finites
-            lastp = torch.max(torch.where(prior, idx, -1))
-            flag = torch.where(
-                lastp >= 0,
-                rejf[torch.clamp(lastp, min=0)],
-                filt_after.last_rejection_due_to_filter,
-            )
-            return alphas[jstop], flag
-
-        def kkt_fallback(px, ps, py, pz, alpha_z):
-            """Accept the α_max step if it reduces the 1-norm KKT error
-            (reference :691-716). Returns (ok, trial)."""
-            cur_err = kkt_error_ipm_one_products(
-                g, backend.AeT(derivs, y), backend.AiT(derivs, z),
-                c_e, c_i, s, y, z, mu,
-            )
-            tx3 = x + alpha_max * px
-            ts3 = s + alpha_max * ps
-            tf3, tce3, tci3, g3 = F.f(tx3), F.c_e(tx3), F.c_i(tx3), F.g(tx3)
-            # The Jacobians are independent of the duals: one evaluation
-            # at tx3 serves both candidates below.
-            d3 = backend.eval_derivs(F, tx3, y, z)
-            tz3 = z + alpha_z * pz
-
-            def err_with(ay):
-                ty = y + ay * py
-                return kkt_error_ipm_one_products(
-                    g3, backend.AeT(d3, ty), backend.AiT(d3, tz3),
-                    tce3, tci3, ts3, ty, tz3, mu,
-                )
-
-            # Candidate y-step sizes: the reference's α_z and Ipopt's primal
-            # α; the lower 1-norm KKT error wins.
-            err_a = err_with(alpha_z)
-            err_b = err_with(alpha_max)
-            ay_best = torch.where(err_a <= err_b, alpha_z, alpha_max)
-            ok = syncs.read(torch.minimum(err_a, err_b) <= 0.999 * cur_err)
-            return bool(ok), _Trial(tx3, ts3, y + ay_best * py, tz3, tf3, tce3, tci3)
-
         # ---- backtracking filter line search (reference :512-717) --------
         alpha = alpha_max
         filt = st.filt
@@ -390,15 +446,9 @@ def make_interior_point(
         done = bool(syncs.read(alpha_max < ALPHA_MIN))
         while not done and guard < MAX_LINE_SEARCH_TRIPS:
             guard += 1
-            tx, ts, tf, tce, tci = trial_at(alpha, p_x, p_s)
-            ty = y + alpha * p_y
-            tz = z + alpha_z * p_z
-            nonfinite = ~(
-                torch.isfinite(tf) & torch.isfinite(tce).all() & torch.isfinite(tci).all()
-            )
-            next_viol = viol(tce, tci, ts)
-            acc, filt1 = try_add(
-                filt, current_cost, current_viol, phi(tf, ts, mu), next_viol, D_phi, alpha
+            t, nonfinite, next_viol, acc, filt1 = trip(
+                alpha, alpha_z, p_x, p_s, p_y, p_z, x, s, y, z, mu, feasible_sub, filt,
+                current_cost, current_viol, D_phi, params, sc,
             )
             at_max = alpha == alpha_max
             alpha_next = alpha * ALPHA_REDUCTION_FACTOR
@@ -414,29 +464,20 @@ def make_interior_point(
             filt_after = filt1
             soc_accepted = False
             if not acc_b and at_max_b and worse_b:
-                a, soc_trial = alpha, _Trial(tx, ts, ty, tz, tf, tce, tci)
+                a, soc_t = alpha, t
                 ce_soc, cims_soc, soc_viol = c_e, c_i - s, next_viol
                 for it in range(MAX_SOC_ITERATIONS):
                     # cₑˢᵒᶜ = αˢᵒᶜcₑ + cₑ(trial) (reference :601-616)
-                    ce_soc = a * ce_soc + soc_trial.c_e
-                    cims_soc = a * cims_soc + soc_trial.c_i - soc_trial.s
+                    ce_soc = a * ce_soc + soc_t.c_e
+                    cims_soc = a * cims_soc + soc_t.c_i - soc_t.s
                     rhs_top2 = -g
                     if me > 0:
                         rhs_top2 = rhs_top2 + backend.AeT(derivs, y)
                     rhs_top2 = rhs_top2 + backend.AiT(derivs, mu / s - sigma * cims_soc)
                     soc_p = compute_step(rhs_top2, -ce_soc, cims_soc)
-                    px2, ps2, py2, pz2 = soc_p
-                    a = fraction_to_the_boundary(s, ps2, tau)
-                    az2 = fraction_to_the_boundary(z, pz2, tau)
-                    tx2 = x + a * px2
-                    ts2 = s + a * ps2
-                    tf2, tce2, tci2 = F.f(tx2), F.c_e(tx2), F.c_i(tx2)
-                    # Equality duals step with the primal α (see ty above).
-                    soc_trial = _Trial(tx2, ts2, y + a * py2, z + az2 * pz2, tf2, tce2, tci2)
-                    nv = viol(tce2, tci2, ts2)
-                    acc2, filt_after = try_add(
-                        filt_after, current_cost, current_viol, phi(tf2, ts2, mu), nv,
-                        D_phi, alpha,
+                    a, az2, soc_t, nv, acc2, filt_after = soc_trial(
+                        x, s, y, z, *soc_p, tau, mu, filt_after, current_cost, current_viol,
+                        D_phi, alpha, params, sc,
                     )
                     # Stop when accepted, when the violation reduction
                     # stalls (reference :648-654), or after 5 corrections.
@@ -450,9 +491,9 @@ def make_interior_point(
                 if soc_accepted:
                     alpha, alpha_z = a, az2
                     p_x, p_s, p_y, p_z = soc_p
-                    trial = soc_trial
+                    trial = soc_t
                 else:
-                    trial = _Trial(tx, ts, ty, tz, tf, tce, tci)
+                    trial = t
                 filt = filt_after
                 break
 
@@ -472,12 +513,16 @@ def make_interior_point(
                 # KKT-error-reduction fallback at minimum step (:691-716);
                 # if it fails the line search ends and restoration is due.
                 alpha, filt = alpha_next, filt_after
-                ok, trial3 = kkt_fallback(p_x, p_s, p_y, p_z, alpha_z)
-                if ok:
+                ok, trial3 = kkt_fallback(
+                    x, s, y, z, f, c_e, c_i, g, derivs, mu, alpha_max, alpha_z,
+                    p_x, p_s, p_y, p_z, params, sc,
+                )
+                if syncs.read(ok):
                     trial = trial3
                 break
 
-            alpha, flag = jump(alpha, p_x, p_s, filt_after, fsrc)
+            alpha, flag = jump(alpha, p_x, p_s, x, s, mu, feasible_sub, filt_after, fsrc >= 4,
+                               current_cost, current_viol, D_phi, params, sc)
             filt = filt_after._replace(last_rejection_due_to_filter=flag)
 
         # ---- post-line-search update (reference :721-862) ----------------
@@ -527,9 +572,8 @@ def make_interior_point(
     def resume(st: IPMState, x1, s1, y1, z1, iterations: int) -> IPMState:
         """Resume the solve after feasibility restoration updated the
         iterates (reference :769-771 then :808-862)."""
-        F = bind(funcs, st.params, st.scaling)
         x1, s1, y1, z1 = (tensor(a) for a in (x1, s1, y1, z1))
-        trial = _Trial(x1, s1, y1, z1, F.f(x1), F.c_e(x1), F.c_i(x1))
+        trial = _Trial(x1, s1, y1, z1, *values(x1, st.params, st.scaling))
         return finish_iteration(st, trial, int(iterations) + 1)
 
     # -- full step with iteration-top checks -------------------------------
@@ -552,7 +596,7 @@ def make_interior_point(
             | ~torch.isfinite(st.s).all()
         )
         requested_stop = (
-            stop_check(st) if stop_check is not None
+            stop_graph(st.x, st.s, st.params) if stop_graph is not None
             else torch.zeros((), dtype=torch.bool, device=device)
         )
         infeas_b, diverging_b, stop_b = syncs.read(infeas, diverging, requested_stop)

@@ -17,6 +17,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from sleipnir_tpu_torch.ops.ldlt import inertia, ldlt_factor, ldlt_solve
+from sleipnir_tpu_torch.optimization.solver.util.cuda_graph import Graphs
 from sleipnir_tpu_torch.optimization.solver.util.host_sync import HostSyncs
 
 
@@ -174,6 +175,8 @@ class DenseBackend:
         self.n, self.me, self.mi = n, me, mi
         self.device = device
         self.syncs = syncs
+        #: The CUDA graphs of the solver built on this backend.
+        self.graphs = Graphs()
 
     def _zeros(self, *shape) -> torch.Tensor:
         return torch.zeros(shape, dtype=torch.float64, device=self.device)

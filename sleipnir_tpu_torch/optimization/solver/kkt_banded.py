@@ -42,6 +42,7 @@ from sleipnir_tpu_torch.optimization.solver.kkt_backend import (
     RegLoopResult,
     regularization_loop,
 )
+from sleipnir_tpu_torch.optimization.solver.util.cuda_graph import Graphs
 from sleipnir_tpu_torch.optimization.solver.util.host_sync import HostSyncs
 
 _F64 = torch.float64
@@ -158,6 +159,8 @@ class BandedBackend:
         self.n, self.me, self.mi = n, me, mi
         self.device = device
         self.syncs = syncs
+        #: The CUDA graphs of the solver built on this backend.
+        self.graphs = Graphs()
         self.f_raw, self.ce_raw, self.ci_raw = f_raw, ce_raw, ci_raw
 
         K, m, p, q = st.num_stages, st.stage_width, st.eq_pad, st.ineq_pad

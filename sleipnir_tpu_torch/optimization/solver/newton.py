@@ -7,7 +7,8 @@ regularized LDLᵀ, a backtracking filter line search on the cost alone
 (α_min = 1e-20), and LINE_SEARCH_FAILED when it runs out, after the
 accept-if-KKT-error-reduced fallback. Where the JAX step branches on
 device, this one reads the deciding booleans through `HostSyncs` and
-branches in Python, as the port's interior-point step does.
+branches in Python, as the port's interior-point step does; the problem
+evaluations replay as CUDA graphs on the card (`util/cuda_graph.py`).
 """
 
 from __future__ import annotations
@@ -91,14 +92,33 @@ def make_newton(funcs: NewtonFunctions, options: Options, *, backend):
         A_i=lambda x, p, sc: torch.zeros((0, n), dtype=_F64, device=device),
     )
 
+    # -- problem evaluations (CUDA graphs on the card) ----------------------
+
+    graphs = backend.graphs
+
+    @graphs.wrap
+    def evaluate(x, params, sc):
+        """f, g and the backend's Hessian at x."""
+        F = bind(funcs, params, sc)
+        return F.f(x), F.g(x), backend.eval_derivs(bind(ipm_funcs, params, sc), x, empty, empty)
+
+    @graphs.wrap
+    def cost_at(a, p_x, x, params, sc):
+        tx = x + a * p_x
+        return tx, bind(funcs, params, sc).f(tx)
+
+    @graphs.wrap
+    def values(x, params, sc):
+        F = bind(funcs, params, sc)
+        return F.f(x), F.g(x)
+
+    # -- init and iteration ------------------------------------------------
+
     def init(x0, params, scaling, iterations0=0) -> NewtonState:
         params = tensor(params)
         scaling = ScalingArrays(*(tensor(a) for a in scaling))
-        F = bind(funcs, params, scaling)
-        Fi = bind(ipm_funcs, params, scaling)
         x0 = tensor(x0)
-        f, g = F.f(x0), F.g(x0)
-        derivs = backend.eval_derivs(Fi, x0, empty, empty)
+        f, g, derivs = evaluate(x0, params, scaling)
         finite = torch.isfinite(f) & torch.isfinite(g).all() & backend.all_finite(derivs)
         E0 = unscaled_kkt_error_newton(scaling, g)
         finite_b, converged_b = syncs.read(finite, E0 <= tol)
@@ -117,8 +137,7 @@ def make_newton(funcs: NewtonFunctions, options: Options, *, backend):
         )
 
     def iteration_body(st: NewtonState) -> NewtonState:
-        F = bind(funcs, st.params, st.scaling)
-        Fi = bind(ipm_funcs, st.params, st.scaling)
+        params, sc = st.params, st.scaling
         x, f, g, derivs = st.x, st.f, st.g, st.derivs
 
         fac = backend.factor(derivs, empty, st.prev_delta, GAMMA_MIN)
@@ -134,8 +153,7 @@ def make_newton(funcs: NewtonFunctions, options: Options, *, backend):
         filt = st.filt
         accepted = None
         for _ in range(MAX_LINE_SEARCH_TRIPS):
-            tx = x + alpha * p_x
-            tf = F.f(tx)
+            tx, tf = cost_at(alpha, p_x, x, params, sc)
             alpha_next = alpha * ALPHA_REDUCTION_FACTOR
             nonfinite_b, hit_min_b = syncs.read(~torch.isfinite(tf), alpha_next < ALPHA_MIN)
             if nonfinite_b:
@@ -154,17 +172,17 @@ def make_newton(funcs: NewtonFunctions, options: Options, *, backend):
                 # newton.hpp:227-246): the full step, if it cuts the
                 # 1-norm KKT error.
                 tx3 = x + p_x
-                if syncs.read(kkt_error_newton_one(F.g(tx3)) <= 0.999 * kkt_error_newton_one(g)):
-                    accepted = (tx3, F.f(tx3), alpha_next)
+                f3, g3 = values(tx3, params, sc)
+                if syncs.read(kkt_error_newton_one(g3) <= 0.999 * kkt_error_newton_one(g)):
+                    accepted = (tx3, f3, alpha_next)
                 break
             alpha = alpha_next
 
         if accepted is None:
             return st._replace(status=int(ExitStatus.LINE_SEARCH_FAILED), filt=filt)
         x1, f1, alpha = accepted
-        g1 = F.g(x1)
-        derivs1 = backend.eval_derivs(Fi, x1, empty, empty)
-        E0 = unscaled_kkt_error_newton(st.scaling, g1)
+        _f, g1, derivs1 = evaluate(x1, params, sc)
+        E0 = unscaled_kkt_error_newton(sc, g1)
         iterations = st.iterations + 1
         if iterations >= options.max_iterations:
             status = int(ExitStatus.MAX_ITERATIONS_EXCEEDED)

@@ -4,7 +4,8 @@ RUNNING.
 Port of `sleipnir_tpu/optimization/solver/solve_driver.py` as a host
 loop. With callbacks, each iteration first builds an `IterationInfo` and
 calls every callback, matching the reference's per-iteration callback
-semantics (reference interior_point.hpp:413-417).
+semantics (reference interior_point.hpp:413-417); with diagnostics, each
+step is followed by its table row, and profilers time the segments.
 
 Feasibility restoration changes the problem shape, so a step signals it
 through a status sentinel and `run_solver` hands the state to a
@@ -29,36 +30,65 @@ def run_solver(
     callbacks: Sequence[Callable] = (),
     info_fn: Callable | None = None,
     restoration_handler: Callable | None = None,
+    diagnostics_fn: Callable | None = None,
     start_time: float | None = None,
+    profilers: dict | None = None,
 ):
     """Drive `step` until the state's status leaves RUNNING. Returns the
-    final state, with a terminal ExitStatus in `.status`."""
+    final state, with a terminal ExitStatus in `.status`.
+
+    With `options.diagnostics`, `diagnostics_fn(prev, after)` prints each
+    step's table row. `profilers`, when given, is a dict of SolveProfilers
+    keyed "solve", "iterate", "restoration", "callbacks" (reference
+    interior_point.hpp:155-237). Every step ends in a host read, so the
+    "iterate" timer measures the device's work, not its dispatch."""
     if start_time is None:
         start_time = time.monotonic()
+    if profilers is not None:
+        profilers["solve"].start()
     while True:
         if state.status == status_codes.RUNNING:
             if state.iterations >= options.max_iterations:
-                return state._replace(status=int(ExitStatus.MAX_ITERATIONS_EXCEEDED))
+                state = state._replace(status=int(ExitStatus.MAX_ITERATIONS_EXCEEDED))
+                break
             if time.monotonic() - start_time > options.timeout:
-                return state._replace(status=int(ExitStatus.TIMEOUT))
+                state = state._replace(status=int(ExitStatus.TIMEOUT))
+                break
             if callbacks and info_fn is not None:
+                if profilers is not None:
+                    profilers["callbacks"].start()
                 info = info_fn(state)
                 stop = False
                 for cb in callbacks:
                     if cb(info):
                         stop = True
+                if profilers is not None:
+                    profilers["callbacks"].stop()
                 if stop:
-                    return state._replace(status=int(ExitStatus.CALLBACK_REQUESTED_STOP))
+                    state = state._replace(status=int(ExitStatus.CALLBACK_REQUESTED_STOP))
+                    break
+            prev = state
+            if profilers is not None:
+                profilers["iterate"].start()
             state = step(state)
+            if profilers is not None:
+                profilers["iterate"].stop()
+            if options.diagnostics and diagnostics_fn is not None:
+                diagnostics_fn(prev, state)
         elif state.status == status_codes.FEASIBILITY_RESTORATION_REQUESTED:
             if restoration_handler is None:
-                return state._replace(
-                    status=int(ExitStatus.FEASIBILITY_RESTORATION_FAILED)
-                )
+                state = state._replace(status=int(ExitStatus.FEASIBILITY_RESTORATION_FAILED))
+                break
+            if profilers is not None:
+                profilers["restoration"].start()
             state = restoration_handler(state, start_time)
+            if profilers is not None:
+                profilers["restoration"].stop()
             if state.status == status_codes.FEASIBILITY_RESTORATION_REQUESTED:
-                return state._replace(
-                    status=int(ExitStatus.FEASIBILITY_RESTORATION_FAILED)
-                )
+                state = state._replace(status=int(ExitStatus.FEASIBILITY_RESTORATION_FAILED))
+                break
         else:
-            return state
+            break
+    if profilers is not None:
+        profilers["solve"].stop()
+    return state

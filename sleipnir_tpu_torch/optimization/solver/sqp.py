@@ -10,7 +10,8 @@ backtracking ladder and the accept-if-KKT-error-reduced fallback chooses
 the step. A step that finds no acceptable point ends with status
 FEASIBILITY_RESTORATION_REQUESTED for `run_solver`'s restoration handler.
 Where the JAX step branches on device, this one reads the deciding
-booleans through `HostSyncs` and branches in Python.
+booleans through `HostSyncs` and branches in Python; the problem
+evaluations replay as CUDA graphs on the card (`util/cuda_graph.py`).
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from sleipnir_tpu_torch.optimization.solver.funcs import (
     bind,
 )
 from sleipnir_tpu_torch.optimization.solver.options import Options
+from sleipnir_tpu_torch.optimization.solver.util.cuda_graph import at
 from sleipnir_tpu_torch.optimization.solver.util.filter import (
     FilterState,
     check_acceptance,
@@ -120,15 +122,82 @@ def make_sqp(funcs: SQPFunctions, options: Options, *, backend):
         A_i=lambda x, p, sc: torch.zeros((0, n), dtype=_F64, device=device),
     )
 
+    # -- problem evaluations (CUDA graphs on the card) ----------------------
+
+    graphs = backend.graphs
+
+    @graphs.wrap
+    def evaluate(x, y, params, sc):
+        """f, g, cₑ and the backend's derivatives at x."""
+        F = bind(funcs, params, sc)
+        Fi = bind(ipm_funcs, params, sc)
+        return F.f(x), F.g(x), F.c_e(x), backend.eval_derivs(Fi, x, y, empty)
+
+    @graphs.wrap
+    def values(x, params, sc):
+        F = bind(funcs, params, sc)
+        return F.f(x), F.c_e(x)
+
+    @graphs.wrap
+    def refresh(x, y, c_e, params, sc):
+        """Derivatives and KKT error at an accepted iterate (reference
+        sqp.hpp:560-575)."""
+        F = bind(funcs, params, sc)
+        g1 = F.g(x)
+        d1 = backend.eval_derivs(bind(ipm_funcs, params, sc), x, y, empty)
+        return g1, d1, unscaled_kkt_error_sqp_products(sc, g1, backend.AeT(d1, y), c_e, y)
+
+    @graphs.wrap
+    def trial_at(a, px, py, x, y, params, sc):
+        F = bind(funcs, params, sc)
+        tx = x + a * px
+        return _Trial(tx, y + a * py, F.f(tx), F.c_e(tx))
+
+    @graphs.wrap
+    def jump(alpha, p_x, x, f, filt_after, reset_counted: bool, current_viol, D_phi, params, sc):
+        """Batched backtracking ladder (JAX step :416-470): every
+        remaining halving of α against the current filter at once, and
+        the first candidate the sequential loop would stop at.
+        `reset_counted` is whether the full-step rejection counter has
+        reached 4. Returns (α, last_rejection_due_to_filter)."""
+        F = bind(funcs, params, sc)
+        idx = torch.arange(MAX_BACKTRACKS, device=x.device)
+        alphas = alpha * ALPHA_REDUCTION_FACTOR ** torch.arange(
+            1, MAX_BACKTRACKS + 1, dtype=_F64, device=x.device
+        )
+        below = alphas * ALPHA_REDUCTION_FACTOR < ALPHA_MIN
+        jlast = torch.argmax(below.to(torch.uint8))
+
+        def merit(a):
+            tx = x + a * p_x
+            return F.f(tx), _one_norm(F.c_e(tx))
+
+        tfs, tviols = vmap(merit)(alphas)
+        accs, rejected_pres, in_filters, finites, _sw, _ar = check_acceptance(
+            filt_after, f, current_viol, tfs, tviols, D_phi, alphas
+        )
+        rejf = finites & ~rejected_pres & in_filters
+        reset_possible = reset_counted & (filt_after.max_viol > current_viol / 10.0)
+        stop = accs | (reset_possible & ~accs & rejf)
+        stop = (stop & (idx <= jlast)) | (idx == jlast)
+        jstop = torch.argmax(stop.to(torch.uint8))
+        prior = (idx < jstop) & finites
+        lastp = torch.max(torch.where(prior, idx, -1))
+        flag = torch.where(
+            lastp >= 0,
+            at(rejf, torch.clamp(lastp, min=0)),
+            filt_after.last_rejection_due_to_filter,
+        )
+        return at(alphas, jstop), flag
+
+    # -- init and iteration ------------------------------------------------
+
     def init(x0, params, scaling, y0=None, iterations0=0) -> SQPState:
         params = tensor(params)
         scaling = ScalingArrays(*(tensor(a) for a in scaling))
-        F = bind(funcs, params, scaling)
-        Fi = bind(ipm_funcs, params, scaling)
         x0 = tensor(x0)
         y0 = torch.zeros(me, dtype=_F64, device=device) if y0 is None else tensor(y0)
-        f, g, c_e = F.f(x0), F.g(x0), F.c_e(x0)
-        derivs = backend.eval_derivs(Fi, x0, y0, empty)
+        f, g, c_e, derivs = evaluate(x0, y0, params, scaling)
         finite = (
             torch.isfinite(f) & torch.isfinite(g).all() & torch.isfinite(c_e).all()
             & backend.all_finite(derivs)
@@ -157,11 +226,7 @@ def make_sqp(funcs: SQPFunctions, options: Options, *, backend):
         """Refresh derivatives, the KKT error and the exit conditions after
         an accepted step or a return from restoration (reference
         sqp.hpp:560-592)."""
-        F = bind(funcs, st.params, st.scaling)
-        Fi = bind(ipm_funcs, st.params, st.scaling)
-        g1 = F.g(t.x)
-        derivs1 = backend.eval_derivs(Fi, t.x, t.y, empty)
-        E0 = unscaled_kkt_error_sqp_products(st.scaling, g1, backend.AeT(derivs1, t.y), t.c_e, t.y)
+        g1, derivs1, E0 = refresh(t.x, t.y, t.c_e, st.params, st.scaling)
         if iterations >= options.max_iterations:
             status = int(ExitStatus.MAX_ITERATIONS_EXCEEDED)
         elif syncs.read(E0 <= tol):
@@ -176,13 +241,12 @@ def make_sqp(funcs: SQPFunctions, options: Options, *, backend):
     def resume(st: SQPState, x1, y1, iterations: int) -> SQPState:
         """Resume after feasibility restoration (reference sqp.hpp:544-545,
         then :560-592)."""
-        F = bind(funcs, st.params, st.scaling)
         x1, y1 = tensor(x1), tensor(y1)
-        return finish_iteration(st, _Trial(x1, y1, F.f(x1), F.c_e(x1)), int(iterations) + 1)
+        return finish_iteration(st, _Trial(x1, y1, *values(x1, st.params, st.scaling)),
+                                int(iterations) + 1)
 
     def iteration_body(st: SQPState) -> SQPState:
-        F = bind(funcs, st.params, st.scaling)
-        Fi = bind(ipm_funcs, st.params, st.scaling)
+        params, sc = st.params, st.scaling
         x, y, f, c_e = st.x, st.y, st.f, st.c_e
         g, derivs = st.g, st.derivs
 
@@ -201,51 +265,13 @@ def make_sqp(funcs: SQPFunctions, options: Options, *, backend):
         D_phi = g @ p_x
         current_viol = _one_norm(c_e)
 
-        def trial_at(a, px, py):
-            tx = x + a * px
-            return _Trial(tx, y + a * py, F.f(tx), F.c_e(tx))
-
-        def jump(alpha, fsrc, filt_after):
-            """Batched backtracking ladder (JAX step :416-470): every
-            remaining halving of α against the current filter at once, and
-            the first candidate the sequential loop would stop at.
-            Returns (α, last_rejection_due_to_filter)."""
-            idx = torch.arange(MAX_BACKTRACKS, device=device)
-            alphas = alpha * ALPHA_REDUCTION_FACTOR ** torch.arange(
-                1, MAX_BACKTRACKS + 1, dtype=_F64, device=device
-            )
-            below = alphas * ALPHA_REDUCTION_FACTOR < ALPHA_MIN
-            jlast = torch.argmax(below.to(torch.uint8))
-
-            def merit(a):
-                tx = x + a * p_x
-                return F.f(tx), _one_norm(F.c_e(tx))
-
-            tfs, tviols = vmap(merit)(alphas)
-            accs, rejected_pres, in_filters, finites, _sw, _ar = check_acceptance(
-                filt_after, f, current_viol, tfs, tviols, D_phi, alphas
-            )
-            rejf = finites & ~rejected_pres & in_filters
-            reset_possible = (fsrc >= 4) & (filt_after.max_viol > current_viol / 10.0)
-            stop = accs | (reset_possible & ~accs & rejf)
-            stop = (stop & (idx <= jlast)) | (idx == jlast)
-            jstop = torch.argmax(stop.to(torch.uint8))
-            prior = (idx < jstop) & finites
-            lastp = torch.max(torch.where(prior, idx, -1))
-            flag = torch.where(
-                lastp >= 0,
-                rejf[torch.clamp(lastp, min=0)],
-                filt_after.last_rejection_due_to_filter,
-            )
-            return alphas[jstop], flag
-
         # ---- backtracking filter line search (reference sqp.hpp:318-533)
         alpha = alpha_max
         filt = st.filt
         fsrc = st.full_step_rejected_counter
         accepted = None
         for _ in range(MAX_LINE_SEARCH_TRIPS):
-            t = trial_at(alpha, p_x, p_y)
+            t = trial_at(alpha, p_x, p_y, x, y, params, sc)
             nonfinite = ~(torch.isfinite(t.f) & torch.isfinite(t.c_e).all())
             next_viol = _one_norm(t.c_e)
             acc, filt1 = try_add(filt, f, current_viol, t.f, next_viol, D_phi, alpha)
@@ -269,7 +295,7 @@ def make_sqp(funcs: SQPFunctions, options: Options, *, backend):
                 for _ in range(MAX_SOC_ITERATIONS):
                     ce_soc = alpha * ce_soc + soc.c_e
                     px2, py2 = compute_step(-ce_soc)
-                    soc = trial_at(alpha, px2, py2)
+                    soc = trial_at(alpha, px2, py2, x, y, params, sc)
                     nv = _one_norm(soc.c_e)
                     acc2, filt_after = try_add(
                         filt_after, f, current_viol, soc.f, nv, D_phi, alpha
@@ -302,15 +328,16 @@ def make_sqp(funcs: SQPFunctions, options: Options, *, backend):
                 # KKT-error-reduction fallback at the minimum step
                 # (reference sqp.hpp:490-522); if it fails, restoration.
                 alpha, filt = alpha_next, filt_after
-                t3 = trial_at(alpha_max, p_x, p_y)
-                d3 = backend.eval_derivs(Fi, t3.x, t3.y, empty)
+                t3 = trial_at(alpha_max, p_x, p_y, x, y, params, sc)
+                _f3, g3, _ce3, d3 = evaluate(t3.x, t3.y, params, sc)
                 cur_err = kkt_error_sqp_one_products(g, backend.AeT(derivs, y), c_e, y)
-                next_err = kkt_error_sqp_one_products(F.g(t3.x), backend.AeT(d3, t3.y), t3.c_e, t3.y)
+                next_err = kkt_error_sqp_one_products(g3, backend.AeT(d3, t3.y), t3.c_e, t3.y)
                 if syncs.read(next_err <= 0.999 * cur_err):
                     accepted = t3
                 break
 
-            alpha, flag = jump(alpha, fsrc, filt_after)
+            alpha, flag = jump(alpha, p_x, x, f, filt_after, fsrc >= 4, current_viol, D_phi,
+                               params, sc)
             filt = filt_after._replace(last_rejection_due_to_filter=flag)
 
         factored = dict(prev_delta=fac.delta, delta=fac.delta, gamma=fac.gamma)

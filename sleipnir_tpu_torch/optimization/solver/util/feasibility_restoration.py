@@ -267,12 +267,12 @@ def _stop_check(parent, parent_state, x_r, s_r, mu: float, init_viol: float):
     parent_g = parent_state.g
     parent_filter = parent_state.filt
 
-    def stop_check(rst):
-        tx = rst.x[:n]
-        ts = rst.s[:mi]
-        tf = parent.f(tx, rst.params, psc)
-        tce = parent.c_e(tx, rst.params, psc)
-        tci = parent.c_i(tx, rst.params, psc)
+    def stop_check(x, s, params):
+        tx = x[:n]
+        ts = s[:mi]
+        tf = parent.f(tx, params, psc)
+        tce = parent.c_e(tx, params, psc)
+        tci = parent.c_i(tx, params, psc)
         trial_cost = tf - mu * torch.sum(torch.log(ts))
         trial_viol = torch.sum(torch.abs(tce)) + torch.sum(torch.abs(tci - ts))
         D_phi_r = parent_g @ (tx - x_r_t) - mu * torch.sum((ts - s_r_t) / s_r_t)

@@ -16,7 +16,9 @@ branch into a per-lane mask and merges both sides with `torch.where`:
     lanes (`any`) through `HostSyncs`; no host read is per lane, so the
     reads per iteration do not grow with L;
   - derivatives and every other per-lane function run under
-    `torch.func.vmap` over lanes (the params are shared);
+    `torch.func.vmap` over lanes (the params are shared); the problem
+    evaluations among them replay as CUDA graphs on the card, each graph
+    holding the whole vmapped function;
   - the KKT factor and solves never run under `vmap`: the staged systems
     of all lanes and all ladder candidates are flattened into one batch,
     so K1 factors the 4·L systems of a ladder in one launch and K2 solves
@@ -30,6 +32,8 @@ runs in a batch, as in the JAX package).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 from torch.func import vmap
@@ -310,15 +314,21 @@ def make_lane_interior_point(funcs: IPMFunctions, options: Options, *, backend):
 
     def on_lanes(fn):
         """vmap over lanes of fn(*lane_args, params), params shared."""
+        @functools.wraps(fn)
         def call(*args):
             return vmap(fn, in_dims=(0,) * (len(args) - 1) + (None,))(*args)
         return call
+
+    # The problem evaluations replay as CUDA graphs on the card, each one
+    # captured whole around its `vmap` (`util/cuda_graph.py`).
+    graphed = backend.graphs.wrap
 
     # -- per-lane functions (one lane's tensors, as in the serial step) ----
 
     def F_of(sc, params):
         return bind(funcs, params, sc)
 
+    @graphed
     @on_lanes
     def lane_init(x0, s0, y0, z0, sc, params):
         F = F_of(sc, params)
@@ -385,6 +395,7 @@ def make_lane_interior_point(funcs: IPMFunctions, options: Options, *, backend):
         ts = torch.where(feasible_sub, tci, s + a * ps)
         return tx, ts, F.f(tx), F.c_e(tx), tci
 
+    @graphed
     @on_lanes
     def trip(alpha, alpha_z, p_x, p_s, p_y, p_z, x, s, y, z, mu, feasible_sub, filt,
              cost, cviol, D_phi, sc, params):
@@ -396,6 +407,7 @@ def make_lane_interior_point(funcs: IPMFunctions, options: Options, *, backend):
         t = _Trial(tx, ts, y + alpha * p_y, z + alpha_z * p_z, tf, tce, tci)
         return t, nonfinite, next_viol, acc, filt1
 
+    @graphed
     @on_lanes
     def soc_trial(x, s, y, z, p_x, p_s, p_y, p_z, tau, mu, filt, cost, cviol, D_phi, alpha, sc,
                   params):
@@ -410,6 +422,7 @@ def make_lane_interior_point(funcs: IPMFunctions, options: Options, *, backend):
         acc, filt1 = try_add(filt, cost, cviol, phi(tf, ts, mu), nv, D_phi, alpha)
         return a, az, t, nv, acc, filt1
 
+    @graphed
     @on_lanes
     def jump(alpha, p_x, p_s, x, s, mu, feasible_sub, filt_after, fsrc, cost, cviol, D_phi, sc,
              params):
@@ -443,6 +456,7 @@ def make_lane_interior_point(funcs: IPMFunctions, options: Options, *, backend):
         )
         return alphas[jstop], flag
 
+    @graphed
     @on_lanes
     def kkt_fallback(x, s, y, z, f, c_e, c_i, g, derivs, mu, alpha_max, alpha_z, p_x, p_s, p_y, p_z,
                      sc, params):
@@ -481,6 +495,7 @@ def make_lane_interior_point(funcs: IPMFunctions, options: Options, *, backend):
     def clamp_trial_z(t, mu, _params):
         return t._replace(z=clamp_z(t.z, mu, t.s))
 
+    @graphed
     @on_lanes
     def refresh(t, sc, params):
         """Derivatives and KKT error at an accepted iterate (reference

@@ -105,17 +105,20 @@ def test_missing_cuda_raises_instead_of_falling_back():
         p.solve()
 
 
-def test_paths_outside_the_slice_raise():
-    """Diagnostics printing (queue 1 item 6) is not ported; problems
-    without OCP structure solve densely, and the OCP options of item 11
-    (variable timesteps, collocation) are ported: they build banded stage
-    structures, per-step dt in the stage and a shared dt as a border."""
+def test_paths_outside_the_slice_raise(capsys):
+    """Diagnostics printing (queue 1 item 6) is ported: the solve prints
+    its iteration table. Problems without OCP structure solve densely,
+    and the OCP options of item 11 (variable timesteps, collocation) are
+    ported: they build banded stage structures, per-step dt in the stage
+    and a shared dt as a border."""
     p = tslp.Problem()
     x = p.decision_variable()
     p.minimize(x**4 + x)
     p.subject_to(x >= -1.0)
-    with pytest.raises(NotImplementedError, match="item 6:"):
-        p.solve(device="cpu", diagnostics=True)
+    assert p.solve(device="cpu", diagnostics=True) == tslp.ExitStatus.SUCCESS
+    out = capsys.readouterr().out
+    assert "Invoking IPM solver" in out and "┃iter   duration" in out
+    assert out.rstrip().endswith("Exit: success")
     assert p.solve(device="cpu") == tslp.ExitStatus.SUCCESS
     for kwargs, width, border in (
         ({"timestep_method": tslp.TimestepMethod.VARIABLE}, 4, 0),
