@@ -66,12 +66,29 @@ two; and the batched solve's shapes, K1 at (32, 101, 13) and K2 at
 just before each path (phases 4-12) and read just after it.
 
  13. graphs: cart-pole N=100, the flywheel at N=5000, restoration at
-     N=2000, the minimum-time flywheel at N=5000 (40 iterations) and the
-     8 lanes again, every graphed problem evaluation held against its
-     eager function on the same inputs, bit for bit, with the iterations
-     of the unchecked runs; then a model-predictive re-solve of the
-     flywheel at N=5000 with new parameters, which must capture nothing
-     and equal a fresh problem's solve bit for bit.
+     N=2000, the minimum-time flywheel at N=5000 (40 iterations), the
+     8 lanes and the float32 flywheel at N=60 (200 iterations) again,
+     every graphed problem evaluation held against its eager function on
+     the same inputs, bit for bit, with the iterations of the unchecked
+     runs; then a model-predictive re-solve of the flywheel at N=5000
+     with new parameters, which must capture nothing and equal a fresh
+     problem's solve bit for bit;
+ 14. float32 (`Options(dtype="float32")`), each path with the launch
+     counts at 0 just before it, no float64 kernel launch and no float64
+     tensor in any graphed call: the three scalar problems of the JAX
+     package's test_dtype_axis.py (Newton, SQP, the dense IPM) to 1e-4;
+     the flywheel at N=60 to 1e-2 (SUCCESS, x_N within 5 of 10), at
+     N=1000 and at N=5000 (feasibility restoration fails, as in the JAX
+     package, after running its banded system on the float32 kernels);
+     4 lanes of the flywheel at N=60 by `solve_ipm_batched`; a cached
+     float64 problem re-solved in float32 (new captures, equal to a fresh
+     float32 problem bit for bit); then K1/K2 in float32 against the
+     float32 twin at every float32 shape the paths launched, at (2, 40,
+     37) and at the width edges (inertia and pivots equal, solutions to
+     1e-4 relative on well-conditioned stages), each path shape timed
+     beside the float64 kernels at the same shape and its bound at 4-byte
+     words. Every status is printed beside the JAX package's, with its
+     iterations.
 
 Phases 4-12 print each path's iterations and time per iteration beside
 the figures from before the problem evaluations ran as CUDA graphs,
@@ -172,9 +189,31 @@ EARLIER = {
 #: The paths whose problem evaluations phase 13 holds, graphed against
 #: eager, and the iterations it runs of each (None: to the end). The
 #: minimum-time flywheel takes 1,422 iterations at N=5000; 40 of them
-#: reach every graphed function it has at the path's shapes.
+#: reach every graphed function it has at the path's shapes. The float32
+#: flywheel at N=60 (phase 14) takes over a thousand; 200 of them reach
+#: its graphed functions in float32.
 GRAPH_PATHS = {"cart-pole": None, "flywheel": None, "restoration": None,
-               "minimum time": 40, "lanes": None}
+               "minimum time": 40, "lanes": None, "float32 flywheel": 200}
+#: The float32 solve (phase 14; `Options(dtype="float32")`), each path held
+#: to what the JAX package's float32 path gives on a CPU (`f32_reference.py`,
+#: PERF.md §6): the scalar problems of tests/optimization/test_dtype_axis.py
+#: (name: JAX iterations) to 1e-4 with their atol 1e-2, and the flywheel at
+#: N=60, 1000 and 5000 to 1e-2 (N: JAX status and iterations).
+F32_N = 60
+F32_SCALAR_JAX_ITERATIONS = {"Newton": 1, "SQP": 1, "IPM": 5}
+F32_FLYWHEEL_JAX = {60: ("SUCCESS", 1404), 1000: ("FEASIBILITY_RESTORATION_FAILED", 577),
+                    5000: ("FEASIBILITY_RESTORATION_FAILED", 197)}
+#: 4 lanes of the flywheel at N=60 in float32 from 0.01·k·randn(n) (seed
+#: 0): the JAX package's `solve_ipm_batched` statuses and iterations. Every
+#: lane ends asking for restoration (status 101), which a lane of the
+#: batch does not run, as in the JAX package.
+F32_LANES = 4
+F32_LANES_JAX = ([101] * F32_LANES, [1395, 1753, 959, 1596])
+#: The float32 kernels against the float32 twin, unrefined, on
+#: well-conditioned stages (|λ| in [20, 40]): float32 eps is 1.2e-7, and
+#: two orders of operations part by a few hundred ulps over thousands of
+#: stages at most.
+F32_REL_TOL = 1e-4
 #: Stage rows K·w above which the TPU package takes its chunked kernels:
 #: ⌈K·w/8⌉·4096 bytes over its 3.5 MB single-shot budget
 #: (sleipnir_tpu/ops/pallas_banded.py:471, :491-493).
@@ -307,21 +346,22 @@ def bound(ops: float, op_rate: float, nbytes: float):
     return (1e3 * max(t_ops, t_bytes), "operations" if t_ops > t_bytes else "bytes")
 
 
-def factor_bound(B, K, w):
+def factor_bound(B, K, w, word=8, rate=F64_PER_S):
     """K1's function: per stage an LU (2w³/3) and an LDLᵀ (w³/3) of S_k,
-    X_k = S_k⁻¹E_kᵀ (2w³) and S_{k+1} = D_{k+1} − E_k X_k (2w³) in f64;
-    D and E read once, LU, X, d (f64) and perm (i32) written once."""
+    X_k = S_k⁻¹E_kᵀ (2w³) and S_{k+1} = D_{k+1} − E_k X_k (2w³), in
+    words of `word` bytes at `rate` operations per second (f64 by
+    default); D and E read once, LU, X, d and perm (i32) written once."""
     ops = B * K * 5.0 * w**3
-    nbytes = 8 * B * ((2 * K - 1) * w * w * 2 + K * w) + 4 * B * K * w
-    return bound(ops, F64_PER_S, nbytes)
+    nbytes = word * B * ((2 * K - 1) * w * w * 2 + K * w) + 4 * B * K * w
+    return bound(ops, rate, nbytes)
 
 
-def solve_bound(B, K, w, r=1):
+def solve_bound(B, K, w, r=1, word=8, rate=F64_PER_S):
     """K2's function: per stage and right-hand side Xₖᵀy, the LU solve and
-    X x (6w² f64 operations); LU, X, perm and b read once, x written once."""
+    X x (6w² operations); LU, X, perm and b read once, x written once."""
     ops = B * K * r * 6.0 * w * w
-    nbytes = 8 * B * ((2 * K - 1) * w * w + 2 * K * w * r) + 4 * B * K * w
-    return bound(ops, F64_PER_S, nbytes)
+    nbytes = word * B * ((2 * K - 1) * w * w + 2 * K * w * r) + 4 * B * K * w
+    return bound(ops, rate, nbytes)
 
 
 def long_launches(shape_counts, kind):
@@ -445,6 +485,43 @@ class GraphCheck:
         return {name: (self.equal[name], n, self.max_rel[name]) for name, n in self.held.items()}
 
 
+class DtypeTally:
+    """While active, records the floating dtypes of every graphed call's
+    arguments and results, and the calls that captured: a float32 solve
+    must hand its graphs no float64 tensor, and a float32 re-solve of a
+    problem solved in float64 before must capture its own graphs."""
+
+    def __init__(self) -> None:
+        self.dtypes: collections.Counter = collections.Counter()
+        self.float64_calls: collections.Counter = collections.Counter()
+        self.captures: collections.Counter = collections.Counter()
+
+    def __enter__(self) -> "DtypeTally":
+        from torch.utils import _pytree as pytree
+
+        from sleipnir_tpu_torch.optimization.solver.util import cuda_graph
+
+        self._graphed = cuda_graph.Graphed
+        self._call = call = cuda_graph.Graphed.__call__
+        tally = self
+
+        def tallied(graphed, *args):
+            before = len(graphed._entries)
+            out = call(graphed, *args)
+            seen = {t.dtype for t in pytree.tree_leaves((args, out))
+                    if isinstance(t, torch.Tensor) and t.is_floating_point()}
+            tally.dtypes.update(seen)
+            tally.float64_calls[graphed.name] += int(torch.float64 in seen)
+            tally.captures[graphed.name] += len(graphed._entries) - before
+            return out
+
+        cuda_graph.Graphed.__call__ = tallied
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._graphed.__call__ = self._call
+
+
 def main() -> None:
     # -- 1. device --------------------------------------------------------
     if not torch.cuda.is_available():
@@ -456,9 +533,9 @@ def main() -> None:
     if smi.returncode != 0:
         fail("device", f"nvidia-smi failed: {smi.stderr.strip()}")
     print(smi.stdout.strip().splitlines()[0], flush=True)
-    kind = torch.cuda.get_device_name(0)
+    card = torch.cuda.get_device_name(0)
     dev = torch.device("cuda")
-    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {kind}", flush=True)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {card}", flush=True)
 
     from sleipnir_tpu_torch import (
         OCP,
@@ -1300,9 +1377,14 @@ def main() -> None:
         p = cart_pole_problem(N=N, total_time=TOTAL_TIME)[0]
         return solve_ipm_batched(p, guesses, lanes_options)[3].iterations.tolist()
 
+    def float32_run(cap):
+        p = flywheel.flywheel_problem(N=F32_N, total_time=TOTAL_TIME)[0]
+        p.solve(device="cuda", dtype="float32", tolerance=1e-2, max_iterations=cap)
+        return p.last_solve_stats.iterations
+
     for name, run in (("cart-pole", cart_pole_run), ("flywheel", flywheel_run),
                       ("restoration", restoration_run), ("minimum time", min_time_run),
-                      ("lanes", lanes_run)):
+                      ("lanes", lanes_run), ("float32 flywheel", float32_run)):
         graph_path(name, run)
 
     # A model-predictive re-solve: new values of the initial state and the
@@ -1343,6 +1425,222 @@ def main() -> None:
         fail("graphs", f"re-solve: {mpc_captures} captures, {mpc_diff} from a fresh problem, "
              f"x_0 {MPX.value()[0, 0]}")
     print(f"graphs phase: {time.monotonic() - t_phase:.1f} s", flush=True)
+
+    # -- 14. float32: Options(dtype="float32") on every solver ------------
+    t_phase = time.monotonic()
+    from sleipnir_tpu_torch.optimization.solver.kkt_backend import eps_inertia
+    from sleipnir_tpu_torch.optimization.solver.util import cuda_graph
+
+    eps32 = eps_inertia(torch.float32)
+    f32_shapes: collections.Counter = collections.Counter()
+
+    def f32_path(name, run):
+        """One float32 path with the launch counts at 0 just before it; its
+        result, seconds, kernel shapes and graphs' dtype tally. It fails if
+        a float64 kernel launched or a graphed call saw a float64 tensor."""
+        cuda_banded.reset_counters()
+        reset_graph_counts()
+        torch.cuda.synchronize()
+        with DtypeTally() as tally:
+            t0 = time.monotonic()
+            result = run()
+            torch.cuda.synchronize()
+            seconds = time.monotonic() - t0
+        shapes = dict(cuda_banded.LAUNCHES_BY_SHAPE)
+        if cuda_banded.FACTOR_LAUNCHES or cuda_banded.SOLVE_LAUNCHES:
+            fail("float32", f"{name}: float64 kernel launches {shapes}")
+        if sum(tally.float64_calls.values()):
+            fail("float32", f"{name}: graphed calls with float64 tensors "
+                 f"{dict(tally.float64_calls)}")
+        f32_shapes.update(shapes)
+        return result, seconds, shapes, tally
+
+    def hold_status(name, status, expected):
+        if status != ExitStatus[expected]:
+            fail("float32", f"{name} ended {status}; the JAX package's float32 path ends "
+                 f"{expected}")
+
+    def scalar_problem(solver):
+        p = Problem()
+        x = p.decision_variable()
+        if solver == "Newton":
+            x.set_value(20.0)
+            p.minimize(x * x - 6.0 * x)
+            return p, [x], [3.0]
+        y = p.decision_variable()
+        if solver == "SQP":
+            x.set_value(1.0)
+            y.set_value(1.0)
+            p.minimize(x * x + 2.0 * y * y)
+            p.subject_to(x + y == 3.0)
+            return p, [x, y], [2.0, 1.0]
+        x.set_value(3.0)
+        y.set_value(2.0)
+        p.minimize(x * x + y * y)
+        p.subject_to(x + y >= 2.0)
+        return p, [x, y], [1.0, 1.0]
+
+    # The three scalar problems of tests/optimization/test_dtype_axis.py.
+    for solver, jax_iters in F32_SCALAR_JAX_ITERATIONS.items():
+        p, xs_, expected = scalar_problem(solver)
+        status, seconds, _shapes, _tally = f32_path(
+            solver, lambda: p.solve(device="cuda", dtype="float32", tolerance=1e-4))
+        values = [v.value() for v in xs_]
+        print(f"float32 {solver}: {status}, {p.last_solve_stats.iterations} iterations (the JAX "
+              f"package: {jax_iters}), {seconds:.3f} s, solution {values} (expected {expected})",
+              flush=True)
+        hold_status(solver, status, "SUCCESS")
+        if not all(abs(v - e) <= 1e-2 for v, e in zip(values, expected)):
+            fail("float32", f"{solver}: solution {values} is not within 1e-2 of {expected}")
+        if p._last_state.x.dtype != torch.float32:
+            fail("float32", f"{solver}: the iterate is {p._last_state.x.dtype}")
+
+    # The flywheel at N=60 (SUCCESS), 1000 and 5000 (restoration fails,
+    # its banded system factored by float32 K1 too).
+    f32_iterations = {}
+    for n_fly, (expected, jax_iters) in F32_FLYWHEEL_JAX.items():
+        p, FX32, _FU32 = flywheel.flywheel_problem(N=n_fly, total_time=TOTAL_TIME)
+        status, seconds, shapes, tally = f32_path(
+            f"flywheel N={n_fly}",
+            lambda: p.solve(device="cuda", dtype="float32", tolerance=1e-2))
+        iters = p.last_solve_stats.iterations
+        f32_iterations[n_fly] = iters
+        x_end = float(FX32.value()[0, n_fly])
+        print(f"float32 flywheel N={n_fly}: {status}, {iters} iterations (the JAX package on a "
+              f"CPU: {expected}, {jax_iters} iterations), {seconds:.2f} s "
+              f"({seconds * 1e3 / max(iters, 1):.1f} ms/iteration), x_N {x_end:.6f}, launches "
+              f"{shapes}, graphs' dtypes {sorted(str(d) for d in tally.dtypes)}, {graph_note()}",
+              flush=True)
+        hold_status(f"flywheel N={n_fly}", status, expected)
+        if p._last_state.x.dtype != torch.float32:
+            fail("float32", f"flywheel N={n_fly}: the iterate is {p._last_state.x.dtype}")
+        for k in ("factor_f32", "solve_f32"):
+            if not any(kk == k and K == n_fly + 1 and w == 4 for kk, _b, K, w in shapes):
+                fail("float32", f"flywheel N={n_fly}: no {k} launch at (·, {n_fly + 1}, 4)")
+        if expected == "SUCCESS" and not abs(x_end - 10.0) <= 5.0:
+            fail("float32", f"flywheel N={n_fly}: x_N {x_end} is not within 5 of 10 (the JAX "
+                 f"test's bound)")
+        if expected == "FEASIBILITY_RESTORATION_FAILED" and not any(
+                kk == "factor_f32" and K == n_fly + 1 and w != 4 for kk, _b, K, w in shapes):
+            fail("float32", f"flywheel N={n_fly}: restoration's system was not factored in "
+                 f"float32: {shapes}")
+
+    # 4 lanes of the flywheel at N=60 as one batched solve.
+    lanes32, _LX32, _LU32 = flywheel.flywheel_problem(N=F32_N, total_time=TOTAL_TIME)
+    n32 = lanes32._compile()["n"]
+    rng32 = np.random.default_rng(0)
+    guesses32 = [0.01 * k * rng32.standard_normal(n32) for k in range(F32_LANES)]
+    (l_status, _l_costs, _l_xs, l_final), seconds, shapes, _tally = f32_path(
+        "lanes", lambda: solve_ipm_batched(
+            lanes32, guesses32, Options(device="cuda", dtype="float32", tolerance=1e-2)))
+    l_iters = l_final.iterations.tolist()
+    print(f"float32 lanes, flywheel N={F32_N}, L={F32_LANES}: statuses {l_status.tolist()}, "
+          f"iterations {l_iters} (the JAX package on a CPU: {F32_LANES_JAX}), {seconds:.2f} s, "
+          f"launches {shapes}, {graph_note()}", flush=True)
+    if l_status.tolist() != F32_LANES_JAX[0]:
+        fail("float32", f"lanes ended {l_status.tolist()}, the JAX package's {F32_LANES_JAX[0]}")
+    for key in (("factor_f32", 2 * F32_LANES, F32_N + 1, 4),
+                ("solve_f32", F32_LANES, F32_N + 1, 4)):
+        if not shapes.get(key):
+            fail("float32", f"lanes: no launch at {key}: {shapes}")
+    if l_final.x.dtype != torch.float32:
+        fail("float32", f"lanes: the iterate is {l_final.x.dtype}")
+
+    # A cached float64 problem re-solved in float32: its own graphs, and no
+    # float64 graph replayed; then equal to a fresh float32 problem's solve.
+    cached, CX, CU = flywheel.flywheel_problem(N=F32_N, total_time=TOTAL_TIME)
+    if cached.solve(device="cuda") != ExitStatus.SUCCESS:
+        fail("float32", "the cached problem's float64 solve failed")
+    CX.set_value(np.zeros((1, F32_N + 1)))
+    CU.set_value(np.zeros((1, F32_N + 1)))
+    status, seconds, _shapes, tally = f32_path(
+        "re-solve", lambda: cached.solve(device="cuda", dtype="float32", tolerance=1e-2))
+    re_captures = sum(tally.captures.values())
+    re_iters = cached.last_solve_stats.iterations
+    fresh32, FX60, _ = flywheel.flywheel_problem(N=F32_N, total_time=TOTAL_TIME)
+    fresh32.solve(device="cuda", dtype="float32", tolerance=1e-2)
+    re_diff = float(np.abs(CX.value() - FX60.value()).max())
+    print(f"float32 re-solve of a cached float64 flywheel N={F32_N}: {status}, {re_iters} "
+          f"iterations, {seconds:.2f} s, {re_captures} captures, graphed calls with float64 "
+          f"tensors {sum(tally.float64_calls.values())}, solver cache "
+          f"{sorted(k[-2] for k in cached._solver_cache)}, largest difference from a fresh "
+          f"float32 problem {re_diff:.3e}", flush=True)
+    if status != ExitStatus.SUCCESS or re_captures == 0 or re_iters != f32_iterations[F32_N]:
+        fail("float32", f"re-solve: {status}, {re_captures} captures, {re_iters} iterations "
+             f"(fresh: {f32_iterations[F32_N]})")
+    if re_diff != 0.0:
+        fail("float32", f"re-solve differs from a fresh float32 problem by {re_diff}")
+
+    # K1/K2 in float32 against the float32 twin at every float32 shape the
+    # paths launched, restoration's width, (2, 40, 37) and the width edges;
+    # each path shape timed beside the float64 kernels at the same shape.
+    shape_set = sorted({(B, K, w) for (_k, B, K, w) in f32_shapes})
+    cases32 = [(B, K, w, True) for B, K, w in shape_set] + [(2, 40, 37, False)]
+    cases32 += [(B, 9, w, False) for w in EDGE_WIDTHS for B in (1, 2)]
+    f32_kernels = {}
+    for B, K, w, timed in cases32:
+        D, E, b = conditioned_system(np.random.default_rng(B * K + w + 32), B, K, w)
+        D32, E32, b32 = (torch.tensor(a, dtype=torch.float32, device=dev) for a in (D, E, b))
+        fk = cuda_banded.banded_factor(D32, E32)
+        xk = cuda_banded.banded_solve(fk, b32)
+        fp = plain.block_tridiag_factor(D32, E32)
+        xp = plain.block_tridiag_solve(fp, b32)
+        xf = plain.block_tridiag_solve(fk, b32)
+        xs = cuda_banded.banded_solve(fp, b32)
+        torch.cuda.synchronize()
+        ik = [t.tolist() for t in plain.block_tridiag_inertia(fk, eps32)]
+        ip = [t.tolist() for t in plain.block_tridiag_inertia(fp, eps32)]
+        entry = {
+            "B": B, "K": K, "w": w, "system": "conditioned",
+            "rel_err": rel_diff(xk, xp),
+            "factor_max_abs_err": (xf - xp).abs().max().item(),
+            "factor_rel_err": rel_diff(xf, xp),
+            "solve_max_abs_err": (xs - xp).abs().max().item(),
+            "solve_rel_err": rel_diff(xs, xp),
+            "inertia_equal": ik == ip, "perm_equal": torch.equal(fk.perm, fp.perm),
+            "launches_factor": f32_shapes.get(("factor_f32", B, K, w), 0),
+            "launches_solve": f32_shapes.get(("solve_f32", B, K, w), 0),
+        }
+        if timed:
+            D64, E64, b64 = (t.double() for t in (D32, E32, b32))
+            f64 = cuda_banded.banded_factor(D64, E64)
+            reps, plain_reps = (3, 1) if K > 1000 else (50, 5)
+            entry.update({
+                "factor_ms": cuda_ms(lambda: cuda_banded.banded_factor(D32, E32), reps),
+                "factor_f64_ms": cuda_ms(lambda: cuda_banded.banded_factor(D64, E64), reps),
+                "factor_plain_ms": cuda_ms(lambda: plain.block_tridiag_factor(D32, E32),
+                                           plain_reps),
+                "solve_ms": cuda_ms(lambda: cuda_banded.banded_solve(fk, b32), reps),
+                "solve_f64_ms": cuda_ms(lambda: cuda_banded.banded_solve(f64, b64), reps),
+                "solve_plain_ms": cuda_ms(lambda: plain.block_tridiag_solve(fk, b32),
+                                          plain_reps),
+            })
+            entry["factor_bound_ms"], entry["factor_bound_by"] = factor_bound(
+                B, K, w, word=4, rate=F32_PER_S)
+            entry["solve_bound_ms"], entry["solve_bound_by"] = solve_bound(
+                B, K, w, word=4, rate=F32_PER_S)
+            entry["factor_f64_bound_ms"] = factor_bound(B, K, w)[0]
+            entry["solve_f64_bound_ms"] = solve_bound(B, K, w)[0]
+            del D64, E64, b64, f64
+        f32_kernels[B, K, w] = entry
+        print(f"kernels float32 (B={B}, K={K}, w={w}): inertia {ik[0]}/{ik[1]}/{ik[2]} (plain "
+              f"{ip[0]}/{ip[1]}/{ip[2]}), pivots equal {entry['perm_equal']}, rel diff "
+              f"{entry['rel_err']:.3e} (factor alone {entry['factor_rel_err']:.3e}, solve alone "
+              f"{entry['solve_rel_err']:.3e})"
+              + (f"; factor {entry['factor_ms']:.4f} ms (float64 {entry['factor_f64_ms']:.4f}, "
+                 f"plain {entry['factor_plain_ms']:.2f}, bound {entry['factor_bound_ms']:.6f}), "
+                 f"solve {entry['solve_ms']:.4f} ms (float64 {entry['solve_f64_ms']:.4f}, plain "
+                 f"{entry['solve_plain_ms']:.2f}, bound {entry['solve_bound_ms']:.6f}); path "
+                 f"launches {entry['launches_factor']}/{entry['launches_solve']}"
+                 if timed else ""), flush=True)
+        if ik != ip or not entry["perm_equal"]:
+            fail("float32", f"kernels {(B, K, w)}: inertia {ik} (plain {ip}) or pivots differ")
+        for key in ("rel_err", "factor_rel_err", "solve_rel_err"):
+            if not entry[key] <= F32_REL_TOL:
+                fail("float32", f"kernels {(B, K, w)}: {key} {entry[key]:.3e} > {F32_REL_TOL}")
+        del D32, E32, b32, fk, xk, fp, xp, xf, xs
+    torch.cuda.empty_cache()
+    print(f"float32 phase: {time.monotonic() - t_phase:.1f} s", flush=True)
 
     # -- results ----------------------------------------------------------
     path_shapes = (collections.Counter(fly_shapes) + collections.Counter(fr_shapes)
@@ -1442,11 +1740,53 @@ def main() -> None:
             "parts": probe_parts,
         },
     ]
+    def f32_entry(kind, replaces, path_shape):
+        """K1 or K2 in float32: launches over phase 14's paths, numbers at the
+        float32 flywheel's shape at N=60, every float32 shape under
+        "shapes"."""
+        e = f32_kernels[path_shape]
+        shapes = []
+        for (B, K, w), c in f32_kernels.items():
+            if f"{kind}_ms" not in c:
+                continue
+            shapes.append({
+                "B": B, "K": K, "w": w, "system": c["system"],
+                "max_abs_err": c[f"{kind}_max_abs_err"], "rel_err": c[f"{kind}_rel_err"],
+                "inertia_equal": c["inertia_equal"], "perm_equal": c["perm_equal"],
+                "launches": c[f"launches_{kind}"], "ms": c[f"{kind}_ms"],
+                "f64_ms": c[f"{kind}_f64_ms"], "plain_ms": c[f"{kind}_plain_ms"],
+                "bound_ms": c[f"{kind}_bound_ms"], "bound_by": c[f"{kind}_bound_by"],
+                "f64_bound_ms": c[f"{kind}_f64_bound_ms"],
+            })
+        return {
+            "name": f"banded_{kind}_f32",
+            "route": "cuda",
+            "source": "sleipnir_tpu_torch/csrc/banded.cu",
+            "replaces": replaces,
+            "launches": sum(n for (k, *_shape), n in f32_shapes.items() if k == f"{kind}_f32"),
+            "max_abs_err": e[f"{kind}_max_abs_err"],
+            "ms": e[f"{kind}_ms"],
+            "f64_ms": e[f"{kind}_f64_ms"],
+            "us_per_stage": 1e3 * e[f"{kind}_ms"] / path_shape[1],
+            "plain_ms": e[f"{kind}_plain_ms"],
+            "bound_ms": e[f"{kind}_bound_ms"],
+            "bound_by": e[f"{kind}_bound_by"],
+            "library_ms": None,
+            "shapes": shapes,
+        }
+
+    kernels += [
+        f32_entry("factor", "sleipnir_tpu/ops/pallas_banded.py:360", (2, F32_N + 1, 4)),
+        f32_entry("solve", "sleipnir_tpu/ops/pallas_banded.py:421", (1, F32_N + 1, 4)),
+    ]
     for entry in kernels[2:4]:
         if entry["launches"] == 0:
             fail("results", f"{entry['name']} was never launched at a long-horizon shape")
+    for entry in kernels[5:]:
+        if entry["launches"] == 0:
+            fail("results", f"{entry['name']} was never launched by a float32 path")
     print(json.dumps({"kernels": kernels}), flush=True)
-    device = {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}
+    device = {"platform": "gpu", "kind": card, "count": torch.cuda.device_count()}
     print(json.dumps({"ok": True, "device": device}), flush=True)
 
 

@@ -8,10 +8,11 @@ Run from the repository root:
     python3 kernel_ab.py --dd-baseline DIR [--out FILE]
 
 `--baseline` builds `sleipnir_tpu_torch/csrc/banded.cu` (the current
-design) and the baseline source, whose factor has the earlier C interface
-(six pointers, no scratch for the inertia pass), each with one `nvcc` for
-sm_90a, printing what ptxas reports. At each of the paths' kernel shapes
-it then:
+design) and the baseline source, whose float64 factor has six pointers
+(the interface before the inertia pass took a scratch) or seven (with
+the scratch `S`, as since then; read off the baseline source), each with
+one `nvcc` for sm_90a, printing what ptxas reports. At each of the
+paths' kernel shapes it then:
 
   - holds both builds against each other and against the plain torch
     version: pivots equal, inertia equal, unrefined solutions within 1e-10
@@ -67,7 +68,9 @@ def _bind_baseline(path: Path):
     [(lib_path, log)] = cuda_build.build([cuda_build.Source(path)], verbose=True)
     lib = ctypes.CDLL(str(lib_path))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.sleipnir_banded_factor.argtypes = [ptr] * 6 + [i32] * 3 + [ptr]
+    #: Whether the factor takes the inertia pass's scratch S (7 pointers).
+    lib.scratch = "double* X, double* S" in path.read_text()
+    lib.sleipnir_banded_factor.argtypes = [ptr] * (7 if lib.scratch else 6) + [i32] * 3 + [ptr]
     lib.sleipnir_banded_factor.restype = i32
     lib.sleipnir_banded_solve.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
     lib.sleipnir_banded_solve.restype = i32
@@ -90,8 +93,9 @@ def baseline_factor(lib, D, E):
     perm = torch.empty((B, K, w), dtype=torch.int32, device=D.device)
     d = torch.empty((B, K, w), dtype=torch.float64, device=D.device)
     X = torch.empty_like(E)
-    err = lib.sleipnir_banded_factor(_p(D), _p(E), _p(LU), _p(perm), _p(d), _p(X), B, K, w,
-                                     _stream())
+    scratch = (_p(torch.empty_like(D)),) if lib.scratch else ()
+    err = lib.sleipnir_banded_factor(_p(D), _p(E), _p(LU), _p(perm), _p(d), _p(X), *scratch,
+                                     B, K, w, _stream())
     if err:
         raise RuntimeError(f"baseline factor: CUDA error {err}")
     return BlockTridiagFactor(LU=LU, perm=perm, d=d, X=X)

@@ -10,6 +10,7 @@ Run from the repository root on a machine with a CUDA card:
     python3 phase_probe.py --problem flywheel_dense --N 1000
     python3 phase_probe.py --problem flywheel_min_time --N 5000
     python3 phase_probe.py --problem cart_pole_batch --lanes 8
+    python3 phase_probe.py --problem flywheel --N 60 --dtype float32
     python3 phase_probe.py --device cpu --N 10 --timed 5 --profiled 3
 
 One solve through `Problem.solve`, run to its end, with the parent's
@@ -55,6 +56,9 @@ every restoration iteration in the timed window (no profiled window).
 `factor` and `solve_refined` are the lane-axis ones of `parallel/lanes.py`
 (every lane's ladder in one K1 launch, every lane's solves in one K2
 launch); `eval_derivs` and f, c_e, c_i run under `vmap` over lanes.
+`--dtype float32` solves a serial problem in float32 (`Options.dtype`),
+to `--tolerance` (1e-2 by default there, the JAX package's float32 test
+tolerance; 1e-8 in float64).
 """
 
 from __future__ import annotations
@@ -341,7 +345,11 @@ def main() -> None:
     parser.add_argument("--warm", type=int, default=3)
     parser.add_argument("--timed", type=int, default=30)
     parser.add_argument("--profiled", type=int, default=10)
+    parser.add_argument("--dtype", choices=["float64", "float32"], default="float64")
+    parser.add_argument("--tolerance", type=float, default=None)
     args = parser.parse_args()
+    if args.tolerance is None:
+        args.tolerance = 1e-2 if args.dtype == "float32" else 1e-8
     device = torch.device(args.device)
     if device.type == "cuda":
         if not torch.cuda.is_available():
@@ -381,14 +389,15 @@ def main() -> None:
         return
     problem, _X, _U = PROBLEMS[args.problem](N=args.N, total_time=5.0)
     t0 = time.perf_counter()
-    status = problem.solve(device=args.device)
+    status = problem.solve(device=args.device, dtype=args.dtype, tolerance=args.tolerance)
     probe.sync()
     wall = time.perf_counter() - t0
     stats = problem.last_solve_stats
     probe.finish(stats.iterations)
     restore_s = sum(s for s, _ in probe.restorations)
     restore_it = sum(i for _, i in probe.restorations)
-    print(f"{args.problem} N={args.N} on {args.device}: {status}, {stats.iterations} iterations, "
+    print(f"{args.problem} N={args.N} on {args.device} in {args.dtype} to {args.tolerance:g}: "
+          f"{status}, {stats.iterations} iterations, "
           f"solve {wall:.3f} s ({wall * 1e3 / max(stats.iterations, 1):.1f} ms/iteration), "
           f"host syncs/iteration {stats.host_syncs_per_iteration:.2f}", flush=True)
     print(f"restoration: {len(probe.restorations)} entries, {restore_it} iterations, "

@@ -5,9 +5,10 @@ Problem DSL and OCP layer, interior-point, SQP and Newton solvers driven
 from the host, a dense KKT backend, and a banded one whose
 block-tridiagonal factor and solve run in CUDA C++ kernels written for
 Hopper (`ops/cuda_banded.py`, `csrc/banded.cu`). Everything on the solve
-path is float64, passed explicitly; importing the package changes no
-global torch setting. The solve device comes from `Options(device=...)`,
-"cuda" by default.
+path is in the solve's dtype, float64 unless `Options(dtype="float32")`
+asks for float32 (the kernels are instantiated for both), passed
+explicitly; importing the package changes no global torch setting. The
+solve device comes from `Options(device=...)`, "cuda" by default.
 
 The port covers those solvers on OCP stage structure and without it,
 with banded and dense feasibility restoration, and the whole OCP layer:

@@ -548,6 +548,12 @@ def evaluate(expr: Expr) -> np.ndarray:
     return v.numpy()
 
 
+def _constant_dtype(array, dtype: torch.dtype) -> torch.dtype | None:
+    """The dtype a constant takes on the device: the solve's for floating
+    values, its own (None) for index vectors and masks."""
+    return dtype if np.asarray(array).dtype.kind == "f" else None
+
+
 class CompiledEval:
     """A pure torch function of (x, params) evaluating a set of expressions.
 
@@ -556,9 +562,11 @@ class CompiledEval:
     gathered from the registry at call time, so re-solving after
     `set_value` needs no recompilation (reference docs/usage.md).
 
-    `prepare(device)` moves constants and index vectors to a device once;
-    it must run outside `torch.func` transforms, because a tensor made
-    inside one is wrapped for that transform and must not outlive it.
+    `prepare(device, dtype)` moves constants and index vectors to a device
+    once, the constants in the solve's dtype, so that a float32 evaluation
+    computes in float32; it must run outside `torch.func` transforms,
+    because a tensor made inside one is wrapped for that transform and
+    must not outlive it.
     """
 
     def __init__(self, exprs: Sequence[Expr], wrt_ids: np.ndarray) -> None:
@@ -583,22 +591,27 @@ class CompiledEval:
     def gather_params(self) -> np.ndarray:
         return _registry.get(self.param_ids)
 
-    def on_device(self, key, array: np.ndarray, device: torch.device) -> torch.Tensor:
-        """`array` as a tensor on `device`: the one `prepare` made, else a
-        tensor made for this call only."""
-        cached = self._device_cache.get((key, device))
+    def on_device(self, key, array: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+        """`array` as a tensor on `like`'s device, a floating array in
+        `like`'s dtype: the one `prepare` made, else a tensor made for this
+        call only."""
+        dtype = _constant_dtype(array, like.dtype)
+        cached = self._device_cache.get((key, like.device, dtype))
         if cached is None:
-            return torch.as_tensor(array, device=device)
+            return torch.as_tensor(array, dtype=dtype, device=like.device)
         return cached
 
-    def cache_on(self, key, array: np.ndarray, device: torch.device) -> None:
+    def cache_on(self, key, array: np.ndarray, device: torch.device,
+                 dtype: torch.dtype = torch.float64) -> None:
         # Keyed by the tensor's own device ("cuda:0" for "cuda"), which is
         # what an evaluation's tensors report when they look it up.
-        t = torch.as_tensor(array, device=device)
-        self._device_cache[(key, t.device)] = t
+        dtype = _constant_dtype(array, dtype)
+        t = torch.as_tensor(array, dtype=dtype, device=device)
+        self._device_cache[(key, t.device, dtype)] = t
 
-    def prepare(self, device: torch.device) -> None:
-        """Move every constant and index vector of the DAGs to `device`."""
+    def prepare(self, device: torch.device, dtype: torch.dtype = torch.float64) -> None:
+        """Move every constant and index vector of the DAGs to `device`,
+        the constants in `dtype`."""
         seen: set[int] = set()
         stack = list(self.exprs)
         while stack:
@@ -607,7 +620,7 @@ class CompiledEval:
                 continue
             seen.add(id(e))
             if isinstance(e, ConstExpr):
-                self.cache_on(id(e), e.value, device)
+                self.cache_on(id(e), e.value, device, dtype)
             elif isinstance(e, DecVarExpr):
                 plan = self._leaf_gather(e)
                 if plan[0] == "gather":
@@ -652,12 +665,12 @@ class CompiledEval:
 
     def leaf_value(self, e: Expr, combined: torch.Tensor) -> torch.Tensor:
         if isinstance(e, ConstExpr):
-            return self.on_device(id(e), e.value, combined.device)
+            return self.on_device(id(e), e.value, combined)
         plan = self._leaf_gather(e)
         if plan[0] == "slice":
             _, start, size, shape = plan
             return combined[start : start + size].reshape(shape)
-        return combined[self.on_device(id(e), plan[1], combined.device)]
+        return combined[self.on_device(id(e), plan[1], combined)]
 
     def eval_expr(self, e: Expr, combined: torch.Tensor, cache: dict | None = None):
         """Evaluate one expression against a combined [x, params] vector."""
@@ -684,7 +697,7 @@ class CompiledEval:
         to the referenced variables (every leaf sharing those ids sees the
         varied values), nesting and further differentiation included."""
         of = e.args[0]
-        pos = self.on_device(("wrt", id(e)), self._wrt_positions(e), combined.device)
+        pos = self.on_device(("wrt", id(e)), self._wrt_positions(e), combined)
 
         def inner(wvals):
             varied = torch.index_put(combined, (pos,), wvals)

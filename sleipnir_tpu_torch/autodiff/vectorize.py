@@ -124,15 +124,14 @@ class _Group:
 
     def evaluate(self, compiled: CompiledEval, combined: torch.Tensor):
         """Returns the stacked (k, *shape) result."""
-        device = combined.device
         args = []
         for slot in range(len(self.leaves)):
             if slot in self.var_idx:
-                idx = compiled.on_device((id(self), slot), self.var_idx[slot], device)
+                idx = compiled.on_device((id(self), slot), self.var_idx[slot], combined)
                 args.append(combined[idx])
             else:
                 args.append(
-                    compiled.on_device((id(self), slot), self.const_vals[slot], device)
+                    compiled.on_device((id(self), slot), self.const_vals[slot], combined)
                 )
         leaves = self.leaves
 
@@ -280,19 +279,20 @@ class BlockCompiler:
 
     # -- evaluation --------------------------------------------------------
 
-    def prepare(self, device: torch.device) -> None:
-        """Move every constant and index vector to `device`; call outside
-        `torch.func` transforms (see `CompiledEval.prepare`)."""
-        self.compiled.prepare(device)
+    def prepare(self, device: torch.device, dtype: torch.dtype = torch.float64) -> None:
+        """Move every constant and index vector to `device`, the constants
+        in `dtype`; call outside `torch.func` transforms (see
+        `CompiledEval.prepare`)."""
+        self.compiled.prepare(device, dtype)
         groups = [g for _s, g in self._cost_groups]
         for plan in (self._eq, self._ineq):
             groups += [g for kind, g in plan[0] if kind == "group"]
             self.compiled.cache_on(id(plan[1]), plan[1], device)
         for grp in groups:
             for slot, arr in {**grp.var_idx, **grp.const_vals}.items():
-                self.compiled.cache_on((id(grp), slot), arr, device)
+                self.compiled.cache_on((id(grp), slot), arr, device, dtype)
         for signs, _g in self._cost_groups:
-            self.compiled.cache_on(id(signs), signs, device)
+            self.compiled.cache_on(id(signs), signs, device, dtype)
 
     def num_params(self) -> int:
         return self.compiled.num_params()
@@ -309,9 +309,11 @@ class BlockCompiler:
             total = total + sign * v.reshape(())
         for signs, grp in self._cost_groups:
             stacked = grp.evaluate(self.compiled, combined)
-            sg = self.compiled.on_device(id(signs), signs, combined.device)
+            sg = self.compiled.on_device(id(signs), signs, combined)
             total = total + torch.sum(sg * stacked.reshape(len(signs)))
-        return total
+        # A float64 value a problem function makes must not promote a
+        # float32 evaluation (a no-op in float64).
+        return total.to(combined.dtype)
 
     def _constraints(self, plan, x: torch.Tensor, params: torch.Tensor):
         parts, perm, total = plan
@@ -327,8 +329,8 @@ class BlockCompiler:
                 outs.append(self.compiled.eval_expr(payload, combined, cache).reshape(-1))
             else:
                 outs.append(payload.evaluate(self.compiled, combined).reshape(-1))
-        flat = torch.cat(outs)
-        return flat[self.compiled.on_device(id(perm), perm, combined.device)]
+        flat = torch.cat(outs).to(combined.dtype)
+        return flat[self.compiled.on_device(id(perm), perm, combined)]
 
     def c_e(self, x: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
         return self._constraints(self._eq, x, params)

@@ -1,4 +1,5 @@
-// Block-tridiagonal factor and solve for Hopper (sm_90a), in native f64.
+// Block-tridiagonal factor and solve for Hopper (sm_90a), in native f64
+// and, for the float32 solve, in f32.
 //
 // Replaces the Pallas TPU kernels of sleipnir_tpu/ops/pallas_banded.py:
 //   sleipnir_banded_factor  <- pallas_banded_factor (_factor_kernel)
@@ -53,6 +54,15 @@
 // The batch (the regularization ladder's candidates) takes one warp each.
 // The TPU kernels' double-float arithmetic and one-hot permutations are
 // not carried over: Hopper has native f64.
+//
+// Every kernel is templated on its scalar T and instantiated for double
+// (sleipnir_banded_factor, sleipnir_banded_solve) and for float
+// (sleipnir_banded_factor_f32, sleipnir_banded_solve_f32): the same
+// operations in the same order, on 4-byte words. Shared memory is sized in
+// sizeof(T), the cp.async copies are sizeof(T) wide, and the odd row
+// stride W | 1 puts the lanes reading down a column of 4-byte words on 32
+// distinct banks. The kernels write the pivots d; the inertia threshold is
+// the caller's, taken from the dtype.
 
 #include <cuda_runtime.h>
 
@@ -68,16 +78,35 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kFactorRing = 3;
 constexpr int kSweepRing = 8;
 
-// One 8-byte copy from device to shared memory that does not wait, and the
-// fences that group and await such copies (cp.async).
-__device__ __forceinline__ void copy_async(double* dst, const double* src) {
+// One copy of a T (8 or 4 bytes) from device to shared memory that does
+// not wait, and the fences that group and await such copies (cp.async).
+template <typename T>
+__device__ __forceinline__ void copy_async(T* dst, const T* src) {
+  static_assert(sizeof(T) == 8 || sizeof(T) == 4, "cp.async copies 4 or 8 bytes here");
 #ifdef __CUDA_ARCH__
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src)
-               : "memory");
+  if constexpr (sizeof(T) == 8) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src)
+                 : "memory");
+  }
 #else
   *dst = *src;
 #endif
+}
+
+// |v| in T's own arithmetic.
+__device__ __forceinline__ double abs_of(double v) { return fabs(v); }
+__device__ __forceinline__ float abs_of(float v) { return fabsf(v); }
+
+// The dynamic shared memory of a kernel as T: one byte array for every
+// instantiation, since `extern __shared__ T smem[]` may name one type only.
+template <typename T>
+__device__ __forceinline__ T* shared_as() {
+  extern __shared__ __align__(16) unsigned char smem_bytes[];
+  return reinterpret_cast<T*>(smem_bytes);
 }
 
 __device__ __forceinline__ void commit_async() {
@@ -103,9 +132,8 @@ __device__ __forceinline__ int row_of(int idx, float inv_w) {
 
 // A w x w block, row stride w in device memory, to row stride Ld in
 // shared memory, by Threads threads.
-template <int Ld, int Threads>
-__device__ __forceinline__ void block_to_shared(double* dst, const double* src,
-                                                int w, int tid) {
+template <int Ld, int Threads, typename T>
+__device__ __forceinline__ void block_to_shared(T* dst, const T* src, int w, int tid) {
   const float inv_w = 1.0f / static_cast<float>(w);
   for (int idx = tid; idx < w * w; idx += Threads) {
     const int i = row_of(idx, inv_w);
@@ -114,9 +142,8 @@ __device__ __forceinline__ void block_to_shared(double* dst, const double* src,
 }
 
 // The same block back to device memory (row stride w), coalesced.
-template <int Ld, int Threads>
-__device__ __forceinline__ void block_to_device(double* dst, const double* src,
-                                                int w, int tid) {
+template <int Ld, int Threads, typename T>
+__device__ __forceinline__ void block_to_device(T* dst, const T* src, int w, int tid) {
   const float inv_w = 1.0f / static_cast<float>(w);
   for (int idx = tid; idx < w * w; idx += Threads) {
     const int i = row_of(idx, inv_w);
@@ -134,38 +161,36 @@ __device__ __forceinline__ void block_to_device(double* dst, const double* src,
 // w=32, 2 beyond); kThreads is 32, or 64 where w > 32 columns need a
 // thread each. Columns past w are masked, not skipped, so that every
 // shuffle runs on the whole warp.
-template <int W>
+template <typename T, int W>
 constexpr size_t factor_smem_bytes() {
-  return (5 + 2 * kFactorRing) * (size_t)W * (W | 1) * sizeof(double) + 2 * W * sizeof(int);
+  return (5 + 2 * kFactorRing) * (size_t)W * (W | 1) * sizeof(T) + 2 * W * sizeof(int);
 }
 
-template <int W, int R, int kThreads>
+template <typename T, int W, int R, int kThreads>
 __global__ void __launch_bounds__(kThreads)
-    factor_kernel(const double* __restrict__ D, const double* __restrict__ E,
-                  double* __restrict__ LU, int* __restrict__ perm,
-                  double* __restrict__ S_out, double* __restrict__ X, int K,
-                  int w) {
+    factor_kernel(const T* __restrict__ D, const T* __restrict__ E,
+                  T* __restrict__ LU, int* __restrict__ perm,
+                  T* __restrict__ S_out, T* __restrict__ X, int K, int w) {
   static_assert(W <= kWarp * R && W <= kThreads, "a row or column without an owner");
   constexpr int kSpan = W < kWarp ? W : kWarp;  // lanes that own rows
   constexpr int kLd = W | 1;
   constexpr int kBlock = W * kLd;
-  extern __shared__ double smem[];
-  double* A = smem;               // S_k; the Schur update writes it by columns
-  double* L = A + kBlock;         // two buffers: the LU of S_k in pivot order
-  double* Y = L + 2 * kBlock;     // two buffers: X_k
-  double* ring = Y + 2 * kBlock;  // kFactorRing slots of (E_k, D_{k+1})
+  T* A = shared_as<T>();     // S_k; the Schur update writes it by columns
+  T* L = A + kBlock;         // two buffers: the LU of S_k in pivot order
+  T* Y = L + 2 * kBlock;     // two buffers: X_k
+  T* ring = Y + 2 * kBlock;  // kFactorRing slots of (E_k, D_{k+1})
   int* P = reinterpret_cast<int*>(ring + kFactorRing * 2 * kBlock);  // two buffers
 
   const int tid = threadIdx.x;
   const int lane = tid % kWarp;
   const int ww = w * w;
   const size_t sys = blockIdx.x;
-  const double* Db = D + sys * K * ww;
-  const double* Eb = E + sys * (K - 1) * ww;
-  double* LUb = LU + sys * K * ww;
+  const T* Db = D + sys * K * ww;
+  const T* Eb = E + sys * (K - 1) * ww;
+  T* LUb = LU + sys * K * ww;
   int* Pb = perm + sys * K * w;
-  double* Sb = S_out + sys * K * ww;
-  double* Xb = X + sys * (K - 1) * ww;
+  T* Sb = S_out + sys * K * ww;
+  T* Xb = X + sys * (K - 1) * ww;
   // One warp: __syncwarp; two: the block's barrier (w > 32 only).
   auto sync = [] {
     if constexpr (kThreads == kWarp) {
@@ -180,9 +205,9 @@ __global__ void __launch_bounds__(kThreads)
   const float inv_w = 1.0f / static_cast<float>(w);
   auto fetch_stage = [&](int s) {
     if (s + 1 < K) {
-      double* slot = ring + (s % kFactorRing) * 2 * kBlock;
-      const double* Es = Eb + (size_t)s * ww;
-      const double* Dn = Db + (size_t)(s + 1) * ww;
+      T* slot = ring + (s % kFactorRing) * 2 * kBlock;
+      const T* Es = Eb + (size_t)s * ww;
+      const T* Dn = Db + (size_t)(s + 1) * ww;
       for (int idx = tid; idx < ww; idx += kThreads) {
         const int i = row_of(idx, inv_w);
         const int at = i * kLd + idx - i * w;
@@ -198,16 +223,16 @@ __global__ void __launch_bounds__(kThreads)
   sync();
 
   for (int k = 0; k < K; ++k) {
-    double* Lk = L + (k & 1) * kBlock;
-    double* Yk = Y + (k & 1) * kBlock;
+    T* Lk = L + (k & 1) * kBlock;
+    T* Yk = Y + (k & 1) * kBlock;
     int* Pk = P + (k & 1) * W;
     // The slot of stage k-1 is free: every thread passed its last read.
     // S_k and stage k-1's LU, perm and X go to device memory here, with
     // the LU between these stores and the next barrier.
     fetch_stage(k + kFactorRing - 1);
     {
-      const double* Lp = L + ((k - 1) & 1) * kBlock;
-      const double* Yp = Y + ((k - 1) & 1) * kBlock;
+      const T* Lp = L + ((k - 1) & 1) * kBlock;
+      const T* Yp = Y + ((k - 1) & 1) * kBlock;
       for (int idx = tid; idx < ww; idx += kThreads) {
         const int i = row_of(idx, inv_w);
         const int at = i * kLd + idx - i * w;
@@ -226,15 +251,15 @@ __global__ void __launch_bounds__(kThreads)
     // and keeps their positions in the pivot order; rows never move, and
     // the pivot row reaches the other lanes by shuffle. With two warps
     // both compute it, and warp 0 writes it.
-    double a[R][W];
+    T a[R][W];
     int pos[R];
 #pragma unroll
     for (int q = 0; q < R; ++q) {
       const int r = lane + kWarp * q;
       pos[q] = r;
-      const double* row = A + r * kLd;
+      const T* row = A + r * kLd;
 #pragma unroll
-      for (int j = 0; j < W; ++j) a[q][j] = r < w && j < w ? row[j] : 0.0;
+      for (int j = 0; j < W; ++j) a[q][j] = r < w && j < w ? row[j] : T(0);
     }
 #pragma unroll
     for (int c = 0; c < W; ++c) {
@@ -242,13 +267,13 @@ __global__ void __launch_bounds__(kThreads)
       // The first position holding the largest |S[., c]| among positions
       // >= c; NaN entries lose to every number, and an all-NaN column
       // keeps the row at position c. Key -2 marks "no row here".
-      double best = -2.0;
+      T best = T(-2);
       int best_id = INT_MAX;  // position * 64 + row
 #pragma unroll
       for (int q = 0; q < R; ++q) {
         const int r = lane + kWarp * q;
-        const double v = fabs(a[q][c]);
-        const double key = v == v ? v : -1.0;
+        const T v = abs_of(a[q][c]);
+        const T key = v == v ? v : T(-1);
         const int id = pos[q] * 64 + r;
         if (r < w && pos[q] >= c && (key > best || (key == best && id < best_id))) {
           best = key;
@@ -257,7 +282,7 @@ __global__ void __launch_bounds__(kThreads)
       }
 #pragma unroll
       for (int off = kSpan >> 1; off > 0; off >>= 1) {
-        const double other = __shfl_xor_sync(kFull, best, off);
+        const T other = __shfl_xor_sync(kFull, best, off);
         const int other_id = __shfl_xor_sync(kFull, best_id, off);
         if (other > best || (other == best && other_id < best_id)) {
           best = other;
@@ -279,19 +304,19 @@ __global__ void __launch_bounds__(kThreads)
           pos[q] = p_pos;
         }
       }
-      const double pivot = __shfl_sync(kFull, high ? a[R - 1][c] : a[0][c], src);
-      double l[R];
+      const T pivot = __shfl_sync(kFull, high ? a[R - 1][c] : a[0][c], src);
+      T l[R];
       bool below[R];
 #pragma unroll
       for (int q = 0; q < R; ++q) {
         below[q] = live && lane + kWarp * q < w && pos[q] > c;
         l[q] = a[q][c];
-        if (below[q] && pivot != 0.0) l[q] /= pivot;
+        if (below[q] && pivot != T(0)) l[q] /= pivot;
         a[q][c] = l[q];
       }
 #pragma unroll
       for (int j = c + 1; j < W; ++j) {
-        const double pj = __shfl_sync(kFull, high ? a[R - 1][j] : a[0][j], src);
+        const T pj = __shfl_sync(kFull, high ? a[R - 1][j] : a[0][j], src);
 #pragma unroll
         for (int q = 0; q < R; ++q) {
           if (below[q] && j < w) a[q][j] -= l[q] * pj;
@@ -304,7 +329,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int q = 0; q < R; ++q) {
         const int r = lane + kWarp * q;
         if (r < w) {
-          double* row = Lk + pos[q] * kLd;
+          T* row = Lk + pos[q] * kLd;
 #pragma unroll
           for (int j = 0; j < W; ++j) {
             if (j < w) row[j] = a[q][j];
@@ -320,18 +345,18 @@ __global__ void __launch_bounds__(kThreads)
       for (int i = tid; i < w; i += kThreads) Pb[(size_t)k * w + i] = Pk[i];
       break;
     }
-    const double* Ek = ring + (k % kFactorRing) * 2 * kBlock;
-    const double* Dn = Ek + kBlock;
+    const T* Ek = ring + (k % kFactorRing) * 2 * kBlock;
+    const T* Dn = Ek + kBlock;
 
     if (tid < w) {
       // 2. X_k = S_k^{-1} E_k^T by columns in registers: thread j owns
       // column j through the permutation and both triangles, reading L
       // and U as broadcasts.
       const int jj = tid;
-      const double* erow = Ek + jj * kLd;
-      double y[W];
+      const T* erow = Ek + jj * kLd;
+      T y[W];
 #pragma unroll
-      for (int i = 0; i < W; ++i) y[i] = i < w ? erow[Pk[i]] : 0.0;
+      for (int i = 0; i < W; ++i) y[i] = i < w ? erow[Pk[i]] : T(0);
 #pragma unroll
       for (int c = 0; c + 1 < W; ++c) {
 #pragma unroll
@@ -352,8 +377,8 @@ __global__ void __launch_bounds__(kThreads)
       // a time (each sum in the order l = 0, 1, ...), into A; X_k to its
       // shared buffer, for the next stage to store.
       for (int i0 = 0; i0 < w; i0 += 4) {
-        double acc[4] = {0.0, 0.0, 0.0, 0.0};
-        const double* e[4];
+        T acc[4] = {T(0), T(0), T(0), T(0)};
+        const T* e[4];
 #pragma unroll
         for (int t = 0; t < 4; ++t) e[t] = Ek + min(i0 + t, w - 1) * kLd;
 #pragma unroll
@@ -380,27 +405,25 @@ __global__ void __launch_bounds__(kThreads)
 
 // The unpivoted LDL^T pivots of every S_k (inertia only), one warp per
 // (system, stage), after the chain.
-template <int W>
+template <typename T, int W>
 __global__ void __launch_bounds__(kWarp)
-    ldl_pivots_kernel(const double* __restrict__ S, double* __restrict__ d,
-                      int w) {
+    ldl_pivots_kernel(const T* __restrict__ S, T* __restrict__ d, int w) {
   constexpr int ld = W | 1;
-  extern __shared__ double smem[];
-  double* A = smem;
-  double* lcol = A + W * ld;
+  T* A = shared_as<T>();
+  T* lcol = A + W * ld;
   const int lane = threadIdx.x;
   const size_t blk = blockIdx.x;
-  double* db = d + blk * w;
+  T* db = d + blk * w;
 
   block_to_shared<ld, kWarp>(A, S + blk * w * w, w, lane);
   __syncwarp();
   for (int j = 0; j < w; ++j) {
-    const double dj = A[j * ld + j];
-    const double dj_safe = dj == 0.0 ? 1.0 : dj;
+    const T dj = A[j * ld + j];
+    const T dj_safe = dj == T(0) ? T(1) : dj;
     for (int r = j + 1 + lane; r < w; r += kWarp) lcol[r] = A[r * ld + j] / dj_safe;
     __syncwarp();
     for (int r = j + 1 + lane; r < w; r += kWarp) {
-      const double lr = lcol[r];
+      const T lr = lcol[r];
       for (int c = j + 1; c < w; ++c) A[r * ld + c] -= dj * (lr * lcol[c]);
     }
     if (lane == 0) db[j] = dj;
@@ -413,25 +436,24 @@ __global__ void __launch_bounds__(kWarp)
 // and copies into its ring slots only what it reads (column i of X_k and
 // entry i of b_{k+1}), so the sweep needs no barrier: y_k reaches the
 // other lanes by shuffle.
-template <int W, int R>
+template <typename T, int W, int R>
 __global__ void __launch_bounds__(kWarp)
-    forward_kernel(const double* __restrict__ X, const double* __restrict__ b,
-                   double* __restrict__ x, int K, int w, int r) {
-  extern __shared__ double smem[];
+    forward_kernel(const T* __restrict__ X, const T* __restrict__ b,
+                   T* __restrict__ x, int K, int w, int r) {
   constexpr int ld = W | 1;
   constexpr int wl = W * ld;
   constexpr int slot_size = wl + W;
-  double* ring = smem;  // (X_k, b_{k+1}) per slot
+  T* ring = shared_as<T>();  // (X_k, b_{k+1}) per slot
 
   const int lane = threadIdx.x;
   const size_t sys = blockIdx.x;
   const int col = blockIdx.y;
-  const double* Xb = X + sys * (K - 1) * w * w;
+  const T* Xb = X + sys * (K - 1) * w * w;
   auto at = [&](int k, int i) { return ((sys * K + k) * w + i) * r + col; };
   auto fetch_stage = [&](int s) {
     if (s + 1 < K) {
-      double* slot = ring + (s % kSweepRing) * slot_size;
-      const double* Xs = Xb + (size_t)s * w * w;
+      T* slot = ring + (s % kSweepRing) * slot_size;
+      const T* Xs = Xb + (size_t)s * w * w;
 #pragma unroll
       for (int q = 0; q < R; ++q) {
         const int i = lane + kWarp * q;
@@ -445,11 +467,11 @@ __global__ void __launch_bounds__(kWarp)
   };
 
   for (int s = 0; s + 1 < kSweepRing; ++s) fetch_stage(s);
-  double y[R];
+  T y[R];
 #pragma unroll
   for (int q = 0; q < R; ++q) {
     const int i = lane + kWarp * q;
-    y[q] = i < w ? b[at(0, i)] : 0.0;
+    y[q] = i < w ? b[at(0, i)] : T(0);
   }
   for (int k = 0; k + 1 < K; ++k) {
 #pragma unroll
@@ -459,13 +481,13 @@ __global__ void __launch_bounds__(kWarp)
     }
     wait_async<kSweepRing - 2>();
     fetch_stage(k + kSweepRing - 1);  // into the slot of stage k-1, read already
-    const double* Xk = ring + (k % kSweepRing) * slot_size;
-    double acc[R];
+    const T* Xk = ring + (k % kSweepRing) * slot_size;
+    T acc[R];
 #pragma unroll
-    for (int q = 0; q < R; ++q) acc[q] = 0.0;
+    for (int q = 0; q < R; ++q) acc[q] = T(0);
 #pragma unroll
     for (int l = 0; l < W; ++l) {
-      const double yl = __shfl_sync(kFull, l < kWarp ? y[0] : y[R - 1], l % kWarp);
+      const T yl = __shfl_sync(kFull, l < kWarp ? y[0] : y[R - 1], l % kWarp);
 #pragma unroll
       for (int q = 0; q < R; ++q) {
         const int i = lane + kWarp * q;
@@ -488,29 +510,27 @@ __global__ void __launch_bounds__(kWarp)
 // K2 (b). z_k = S_k^{-1} y_k in place in x, one warp per (system, stage,
 // column), every stage at once: lane i owns rows i and i + 32 of the
 // permuted vector through both triangles.
-template <int W, int R>
+template <typename T, int W, int R>
 __global__ void __launch_bounds__(kWarp)
-    block_solve_kernel(const double* __restrict__ LU,
-                       const int* __restrict__ perm, double* __restrict__ x,
-                       int w, int r) {
-  extern __shared__ double smem[];
+    block_solve_kernel(const T* __restrict__ LU, const int* __restrict__ perm,
+                       T* __restrict__ x, int w, int r) {
   constexpr int ld = W | 1;
-  double* A = smem;
+  T* A = shared_as<T>();
   const int lane = threadIdx.x;
   const size_t blk = blockIdx.x;  // system * K + stage
   const int col = blockIdx.y;
   const int* Pk = perm + blk * w;
 
   block_to_shared<ld, kWarp>(A, LU + blk * w * w, w, lane);
-  double t[R];
+  T t[R];
 #pragma unroll
   for (int q = 0; q < R; ++q) {
     const int i = lane + kWarp * q;
-    t[q] = i < w ? x[(blk * w + Pk[i]) * r + col] : 0.0;
+    t[q] = i < w ? x[(blk * w + Pk[i]) * r + col] : T(0);
   }
   __syncwarp();
   for (int c = 0; c + 1 < w; ++c) {
-    const double tc = __shfl_sync(kFull, c < kWarp ? t[0] : t[R - 1], c % kWarp);
+    const T tc = __shfl_sync(kFull, c < kWarp ? t[0] : t[R - 1], c % kWarp);
 #pragma unroll
     for (int q = 0; q < R; ++q) {
       const int i = lane + kWarp * q;
@@ -518,8 +538,7 @@ __global__ void __launch_bounds__(kWarp)
     }
   }
   for (int c = w - 1; c >= 0; --c) {
-    const double tc =
-        __shfl_sync(kFull, c < kWarp ? t[0] : t[R - 1], c % kWarp) / A[c * ld + c];
+    const T tc = __shfl_sync(kFull, c < kWarp ? t[0] : t[R - 1], c % kWarp) / A[c * ld + c];
 #pragma unroll
     for (int q = 0; q < R; ++q) {
       const int i = lane + kWarp * q;
@@ -541,28 +560,26 @@ __global__ void __launch_bounds__(kWarp)
 // place in x, one warp per (system, column). As in the forward sweep, lane
 // i copies only what it reads (row i of X_k and z_k[i]) and x_{k+1}
 // reaches the other lanes by shuffle.
-template <int W, int R>
+template <typename T, int W, int R>
 __global__ void __launch_bounds__(kWarp)
-    backward_kernel(const double* __restrict__ X, double* __restrict__ x, int K,
-                    int w, int r) {
-  extern __shared__ double smem[];
+    backward_kernel(const T* __restrict__ X, T* __restrict__ x, int K, int w, int r) {
   constexpr int ld = W | 1;
   constexpr int wl = W * ld;
   constexpr int slot_size = wl + W;
-  double* ring = smem;  // (X_k, z_k) per slot
+  T* ring = shared_as<T>();  // (X_k, z_k) per slot
 
   const int lane = threadIdx.x;
   const size_t sys = blockIdx.x;
   const int col = blockIdx.y;
-  const double* Xb = X + sys * (K - 1) * w * w;
+  const T* Xb = X + sys * (K - 1) * w * w;
   auto at = [&](int k, int i) { return ((sys * K + k) * w + i) * r + col; };
   // Step s handles stage k = K - 2 - s. The z_k it prefetches lie below
   // every stage written so far.
   auto fetch_stage = [&](int s) {
     const int k = K - 2 - s;
     if (k >= 0) {
-      double* slot = ring + (s % kSweepRing) * slot_size;
-      const double* Xs = Xb + (size_t)k * w * w;
+      T* slot = ring + (s % kSweepRing) * slot_size;
+      const T* Xs = Xb + (size_t)k * w * w;
 #pragma unroll
       for (int q = 0; q < R; ++q) {
         const int i = lane + kWarp * q;
@@ -576,23 +593,23 @@ __global__ void __launch_bounds__(kWarp)
   };
 
   for (int s = 0; s + 1 < kSweepRing; ++s) fetch_stage(s);
-  double v[R];
+  T v[R];
 #pragma unroll
   for (int q = 0; q < R; ++q) {
     const int i = lane + kWarp * q;
-    v[q] = i < w ? x[at(K - 1, i)] : 0.0;
+    v[q] = i < w ? x[at(K - 1, i)] : T(0);
   }
   for (int s = 0; s + 1 < K; ++s) {
     const int k = K - 2 - s;
     wait_async<kSweepRing - 2>();
     fetch_stage(s + kSweepRing - 1);
-    const double* Xk = ring + (s % kSweepRing) * slot_size;
-    double acc[R];
+    const T* Xk = ring + (s % kSweepRing) * slot_size;
+    T acc[R];
 #pragma unroll
-    for (int q = 0; q < R; ++q) acc[q] = 0.0;
+    for (int q = 0; q < R; ++q) acc[q] = T(0);
 #pragma unroll
     for (int l = 0; l < W; ++l) {
-      const double xl = __shfl_sync(kFull, l < kWarp ? v[0] : v[R - 1], l % kWarp);
+      const T xl = __shfl_sync(kFull, l < kWarp ? v[0] : v[R - 1], l % kWarp);
 #pragma unroll
       for (int q = 0; q < R; ++q) {
         const int i = lane + kWarp * q;
@@ -610,16 +627,16 @@ __global__ void __launch_bounds__(kWarp)
   }
 }
 
-template <int W>
-constexpr size_t ldl_smem_bytes() { return ((size_t)W * (W | 1) + W) * sizeof(double); }
+template <typename T, int W>
+constexpr size_t ldl_smem_bytes() { return ((size_t)W * (W | 1) + W) * sizeof(T); }
 
-template <int W>
+template <typename T, int W>
 constexpr size_t sweep_smem_bytes() {
-  return kSweepRing * ((size_t)W * (W | 1) + W) * sizeof(double);
+  return kSweepRing * ((size_t)W * (W | 1) + W) * sizeof(T);
 }
 
-template <int W>
-constexpr size_t block_solve_smem_bytes() { return (size_t)W * (W | 1) * sizeof(double); }
+template <typename T, int W>
+constexpr size_t block_solve_smem_bytes() { return (size_t)W * (W | 1) * sizeof(T); }
 
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
@@ -645,6 +662,50 @@ cudaError_t by_width(int w, Fn&& fn) {
   return fn(WidthClass<kMaxWidth, 2, 2 * kWarp>{});
 }
 
+// The factor, two launches: the chain, then the inertia pivots.
+template <typename T>
+cudaError_t factor_launch(const T* D, const T* E, T* LU, int* perm, T* d, T* X, T* S,
+                          int B, int K, int w, cudaStream_t st) {
+  return by_width(w, [&](auto cls) {
+    using C = decltype(cls);
+    auto kernel = factor_kernel<T, C::kW, C::kR, C::kThreads>;
+    constexpr size_t smem = factor_smem_bytes<T, C::kW>();
+    cudaError_t e = allow_smem(kernel, smem);
+    if (e != cudaSuccess) return e;
+    kernel<<<B, C::kThreads, smem, st>>>(D, E, LU, perm, S, X, K, w);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    auto ldl = ldl_pivots_kernel<T, C::kW>;
+    ldl<<<B * K, kWarp, ldl_smem_bytes<T, C::kW>(), st>>>(S, d, w);
+    return cudaGetLastError();
+  });
+}
+
+// The solve, three launches: forward sweep, block solves, backward sweep.
+template <typename T>
+cudaError_t solve_launch(const T* LU, const int* perm, const T* X, const T* b, T* x,
+                         int B, int K, int w, int r, cudaStream_t st) {
+  const dim3 per_column(B, r);
+  return by_width(w, [&](auto cls) {
+    using C = decltype(cls);
+    auto forward = forward_kernel<T, C::kW, C::kR>;
+    auto solve = block_solve_kernel<T, C::kW, C::kR>;
+    auto backward = backward_kernel<T, C::kW, C::kR>;
+    constexpr size_t sweep = sweep_smem_bytes<T, C::kW>();
+    cudaError_t e = allow_smem(forward, sweep);
+    if (e == cudaSuccess) e = allow_smem(backward, sweep);
+    if (e != cudaSuccess) return e;
+    forward<<<per_column, kWarp, sweep, st>>>(X, b, x, K, w, r);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    solve<<<dim3(B * K, r), kWarp, block_solve_smem_bytes<T, C::kW>(), st>>>(LU, perm, x, w, r);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    backward<<<per_column, kWarp, sweep, st>>>(X, x, K, w, r);
+    return cudaGetLastError();
+  });
+}
+
 }  // namespace
 
 extern "C" {
@@ -658,20 +719,14 @@ int sleipnir_banded_max_width() { return kMaxWidth; }
 int sleipnir_banded_factor(const double* D, const double* E, double* LU,
                            int* perm, double* d, double* X, double* S, int B,
                            int K, int w, void* stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
-  return (int)by_width(w, [&](auto cls) {
-    using C = decltype(cls);
-    auto kernel = factor_kernel<C::kW, C::kR, C::kThreads>;
-    constexpr size_t smem = factor_smem_bytes<C::kW>();
-    cudaError_t e = allow_smem(kernel, smem);
-    if (e != cudaSuccess) return e;
-    kernel<<<B, C::kThreads, smem, st>>>(D, E, LU, perm, S, X, K, w);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
-    auto ldl = ldl_pivots_kernel<C::kW>;
-    ldl<<<B * K, kWarp, ldl_smem_bytes<C::kW>(), st>>>(S, d, w);
-    return cudaGetLastError();
-  });
+  return (int)factor_launch(D, E, LU, perm, d, X, S, B, K, w, (cudaStream_t)stream);
+}
+
+// The same in float32.
+int sleipnir_banded_factor_f32(const float* D, const float* E, float* LU, int* perm,
+                               float* d, float* X, float* S, int B, int K, int w,
+                               void* stream) {
+  return (int)factor_launch(D, E, LU, perm, d, X, S, B, K, w, (cudaStream_t)stream);
 }
 
 // LU, perm, X from sleipnir_banded_factor; b and x (B, K, w, r). Three
@@ -679,26 +734,14 @@ int sleipnir_banded_factor(const double* D, const double* E, double* LU,
 int sleipnir_banded_solve(const double* LU, const int* perm, const double* X,
                           const double* b, double* x, int B, int K, int w,
                           int r, void* stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
-  const dim3 per_column(B, r);
-  return (int)by_width(w, [&](auto cls) {
-    using C = decltype(cls);
-    auto forward = forward_kernel<C::kW, C::kR>;
-    auto solve = block_solve_kernel<C::kW, C::kR>;
-    auto backward = backward_kernel<C::kW, C::kR>;
-    constexpr size_t sweep = sweep_smem_bytes<C::kW>();
-    cudaError_t e = allow_smem(forward, sweep);
-    if (e == cudaSuccess) e = allow_smem(backward, sweep);
-    if (e != cudaSuccess) return e;
-    forward<<<per_column, kWarp, sweep, st>>>(X, b, x, K, w, r);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
-    solve<<<dim3(B * K, r), kWarp, block_solve_smem_bytes<C::kW>(), st>>>(LU, perm, x, w, r);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
-    backward<<<per_column, kWarp, sweep, st>>>(X, x, K, w, r);
-    return cudaGetLastError();
-  });
+  return (int)solve_launch(LU, perm, X, b, x, B, K, w, r, (cudaStream_t)stream);
+}
+
+// The same in float32, on sleipnir_banded_factor_f32's factor.
+int sleipnir_banded_solve_f32(const float* LU, const int* perm, const float* X,
+                              const float* b, float* x, int B, int K, int w, int r,
+                              void* stream) {
+  return (int)solve_launch(LU, perm, X, b, x, B, K, w, r, (cudaStream_t)stream);
 }
 
 const char* sleipnir_cuda_error_string(int err) {

@@ -135,14 +135,22 @@ class _Cos(torch.autograd.Function):
         return -sin(x) * x_t
 
 
+def _floating(x) -> torch.Tensor:
+    """x as a tensor: a float32 tensor stays float32, anything else becomes
+    float64."""
+    if isinstance(x, torch.Tensor) and x.dtype == torch.float32:
+        return x
+    return torch.as_tensor(x, dtype=torch.float64)
+
+
 def sin(x):
-    """f64-accurate sine (plain torch.sin for other dtypes)."""
-    return _Sin.apply(torch.as_tensor(x, dtype=torch.float64))
+    """f64-accurate sine (plain torch.sin for float32)."""
+    return _Sin.apply(_floating(x))
 
 
 def cos(x):
-    """f64-accurate cosine (plain torch.cos for other dtypes)."""
-    return _Cos.apply(torch.as_tensor(x, dtype=torch.float64))
+    """f64-accurate cosine (plain torch.cos for float32)."""
+    return _Cos.apply(_floating(x))
 
 
 def tan(x):

@@ -13,16 +13,20 @@ every S_k in a second launch of the factor, and the block solves
 S_k⁻¹y_k of every stage between the solve's two sweeps.
 
 The kernels are built with `nvcc` for `sm_90a` at first use by
-`ops/cuda_build.py` and bound through `ctypes`.
+`ops/cuda_build.py` and bound through `ctypes`. They are instantiated for
+float64 and float32: every tensor of one launch has one of the two dtypes,
+and the wrappers raise for any other dtype or a mix.
 
 A wrapper given CUDA tensors launches its kernels or raises; given CPU
 tensors it runs the plain twin in `ops/block_tridiag.py`. The launch
 counters `FACTOR_LAUNCHES` and `SOLVE_LAUNCHES` count wrapper calls that
-launched (the factor is two kernel launches, the solve three), and
-`LAUNCHES_BY_SHAPE` counts them by (kind, B, K, w), so a run can show
-which shapes reached the kernels; `PLAIN_BY_SHAPE` counts, by the same
-key, the calls that ran the plain twin, so a run on the CPU shows the
-shapes a run on the card would launch. The TPU's chunked kernels
+launched in float64 (the factor is two kernel launches, the solve three),
+`FACTOR_LAUNCHES_F32` and `SOLVE_LAUNCHES_F32` those in float32, and
+`LAUNCHES_BY_SHAPE` counts them by (kind, B, K, w), with "factor_f32" and
+"solve_f32" as the float32 kinds, so a run can show which shapes reached
+the kernels; `PLAIN_BY_SHAPE` counts, by the same key, the calls that ran
+the plain twin, so a run on the CPU shows the shapes a run on the card
+would launch. The TPU's chunked kernels
 (`_pallas_factor_chunked`, `_pallas_solve_chunked`), which long horizons
 take there, have no separate counterpart: these kernels stream every
 stage's blocks from device memory whatever K is.
@@ -38,10 +42,13 @@ import torch
 from sleipnir_tpu_torch.ops import block_tridiag, cuda_build
 from sleipnir_tpu_torch.ops.block_tridiag import BlockTridiagFactor
 
-#: Kernel launches since the counters were last reset.
+#: Kernel launches since the counters were last reset, float64 and float32.
 FACTOR_LAUNCHES = 0
 SOLVE_LAUNCHES = 0
-#: The same launches by ("factor" | "solve", B, K, w).
+FACTOR_LAUNCHES_F32 = 0
+SOLVE_LAUNCHES_F32 = 0
+#: The same launches by ("factor" | "solve" | "factor_f32" | "solve_f32",
+#: B, K, w).
 LAUNCHES_BY_SHAPE: collections.Counter = collections.Counter()
 #: Wrapper calls given CPU tensors (the plain twin ran), by the same key.
 PLAIN_BY_SHAPE: collections.Counter = collections.Counter()
@@ -55,12 +62,24 @@ SOURCE = cuda_build.Source(cuda_build.CSRC / "banded.cu")
 _lib = None
 
 
+#: The kernels' scalar types: the suffix of their entry points and of
+#: their counters' kinds.
+_SUFFIX = {torch.float64: "", torch.float32: "_f32"}
+
+
 def reset_counters() -> None:
-    global FACTOR_LAUNCHES, SOLVE_LAUNCHES
+    global FACTOR_LAUNCHES, SOLVE_LAUNCHES, FACTOR_LAUNCHES_F32, SOLVE_LAUNCHES_F32
     FACTOR_LAUNCHES = 0
     SOLVE_LAUNCHES = 0
+    FACTOR_LAUNCHES_F32 = 0
+    SOLVE_LAUNCHES_F32 = 0
     LAUNCHES_BY_SHAPE.clear()
     PLAIN_BY_SHAPE.clear()
+
+
+def _kind(kind: str, dtype: torch.dtype) -> str:
+    """The counters' key of a call: "factor", "factor_f32", ..."""
+    return kind + _SUFFIX.get(dtype, "")
 
 
 def _library():
@@ -69,10 +88,13 @@ def _library():
         [(path, _log)] = cuda_build.build([SOURCE])
         lib = ctypes.CDLL(str(path))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.sleipnir_banded_factor.argtypes = [ptr] * 7 + [i32] * 3 + [ptr]
-        lib.sleipnir_banded_factor.restype = i32
-        lib.sleipnir_banded_solve.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
-        lib.sleipnir_banded_solve.restype = i32
+        for suffix in _SUFFIX.values():
+            factor = getattr(lib, "sleipnir_banded_factor" + suffix)
+            factor.argtypes = [ptr] * 7 + [i32] * 3 + [ptr]
+            factor.restype = i32
+            solve = getattr(lib, "sleipnir_banded_solve" + suffix)
+            solve.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
+            solve.restype = i32
         lib.sleipnir_cuda_error_string.argtypes = [i32]
         lib.sleipnir_cuda_error_string.restype = ctypes.c_char_p
         lib.sleipnir_banded_max_width.argtypes = []
@@ -110,41 +132,54 @@ def _stream() -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
+def _scalar_type(t: torch.Tensor, name: str) -> torch.dtype:
+    """The kernels' scalar type for a launch whose tensors follow `t`."""
+    if t.dtype not in _SUFFIX:
+        raise ValueError(f"{name} must be torch.float64 or torch.float32, got {t.dtype}")
+    return t.dtype
+
+
 def banded_factor(D: torch.Tensor, E: torch.Tensor) -> BlockTridiagFactor:
-    """Factor a batch of block-tridiagonal systems: D (B, K, w, w) f64
-    diagonal blocks, E (B, K-1, w, w) f64 blocks below them."""
+    """Factor a batch of block-tridiagonal systems: D (B, K, w, w)
+    diagonal blocks, E (B, K-1, w, w) blocks below them, both float64 or
+    both float32."""
     if D.device.type == "cpu" and E.device.type == "cpu":
-        PLAIN_BY_SHAPE["factor", *D.shape[:3]] += 1
+        PLAIN_BY_SHAPE[_kind("factor", D.dtype), *D.shape[:3]] += 1
         return block_tridiag.block_tridiag_factor(D, E)
     if D.dim() != 4:
         raise ValueError(f"D must be (B, K, w, w), got {tuple(D.shape)}")
     B, K, w, _ = D.shape
     if not (B >= 1 and K >= 1 and 1 <= w <= MAX_WIDTH):
         raise ValueError(f"unsupported shape (B, K, w) = {(B, K, w)}")
-    _require(D, "D", (B, K, w, w), torch.float64, D.device)
-    _require(E, "E", (B, K - 1, w, w), torch.float64, D.device)
+    dtype = _scalar_type(D, "D")
+    _require(D, "D", (B, K, w, w), dtype, D.device)
+    _require(E, "E", (B, K - 1, w, w), dtype, D.device)
     lib = _library()
     LU = torch.empty_like(D)
     perm = torch.empty((B, K, w), dtype=torch.int32, device=D.device)
-    d = torch.empty((B, K, w), dtype=torch.float64, device=D.device)
+    d = torch.empty((B, K, w), dtype=dtype, device=D.device)
     X = torch.empty_like(E)
     S = torch.empty_like(D)  # the chain's S_k, read by the inertia pass
     with torch.cuda.device(D.device):
-        err = lib.sleipnir_banded_factor(
+        err = getattr(lib, "sleipnir_banded_factor" + _SUFFIX[dtype])(
             _ptr(D), _ptr(E), _ptr(LU), _ptr(perm), _ptr(d), _ptr(X), _ptr(S),
             B, K, w, _stream(),
         )
     _check(lib, err, "banded_factor")
-    global FACTOR_LAUNCHES
-    FACTOR_LAUNCHES += 1
-    LAUNCHES_BY_SHAPE["factor", B, K, w] += 1
+    global FACTOR_LAUNCHES, FACTOR_LAUNCHES_F32
+    if dtype == torch.float32:
+        FACTOR_LAUNCHES_F32 += 1
+    else:
+        FACTOR_LAUNCHES += 1
+    LAUNCHES_BY_SHAPE[_kind("factor", dtype), B, K, w] += 1
     return BlockTridiagFactor(LU=LU, perm=perm, d=d, X=X)
 
 
 def banded_solve(fac: BlockTridiagFactor, b: torch.Tensor) -> torch.Tensor:
-    """Solve factored systems for b (B, K, w) or (B, K, w, r) f64."""
+    """Solve factored systems for b (B, K, w) or (B, K, w, r), in the
+    factor's dtype (float64 or float32)."""
     if b.device.type == "cpu":
-        PLAIN_BY_SHAPE["solve", *b.shape[:3]] += 1
+        PLAIN_BY_SHAPE[_kind("solve", b.dtype), *b.shape[:3]] += 1
         return block_tridiag.block_tridiag_solve(fac, b)
     if b.dim() not in (3, 4):
         raise ValueError(f"b must be (B, K, w[, r]), got {tuple(b.shape)}")
@@ -152,19 +187,23 @@ def banded_solve(fac: BlockTridiagFactor, b: torch.Tensor) -> torch.Tensor:
     r = b.shape[3] if b.dim() == 4 else 1
     if not (B >= 1 and K >= 1 and 1 <= w <= MAX_WIDTH and r >= 1):
         raise ValueError(f"unsupported shape (B, K, w, r) = {(B, K, w, r)}")
-    _require(b, "b", tuple(b.shape), torch.float64, b.device)
-    _require(fac.LU, "LU", (B, K, w, w), torch.float64, b.device)
+    dtype = _scalar_type(b, "b")
+    _require(b, "b", tuple(b.shape), dtype, b.device)
+    _require(fac.LU, "LU", (B, K, w, w), dtype, b.device)
     _require(fac.perm, "perm", (B, K, w), torch.int32, b.device)
-    _require(fac.X, "X", (B, K - 1, w, w), torch.float64, b.device)
+    _require(fac.X, "X", (B, K - 1, w, w), dtype, b.device)
     lib = _library()
     x = torch.empty_like(b)
     with torch.cuda.device(b.device):
-        err = lib.sleipnir_banded_solve(
+        err = getattr(lib, "sleipnir_banded_solve" + _SUFFIX[dtype])(
             _ptr(fac.LU), _ptr(fac.perm), _ptr(fac.X), _ptr(b), _ptr(x),
             B, K, w, r, _stream(),
         )
     _check(lib, err, "banded_solve")
-    global SOLVE_LAUNCHES
-    SOLVE_LAUNCHES += 1
-    LAUNCHES_BY_SHAPE["solve", B, K, w] += 1
+    global SOLVE_LAUNCHES, SOLVE_LAUNCHES_F32
+    if dtype == torch.float32:
+        SOLVE_LAUNCHES_F32 += 1
+    else:
+        SOLVE_LAUNCHES += 1
+    LAUNCHES_BY_SHAPE[_kind("solve", dtype), B, K, w] += 1
     return x

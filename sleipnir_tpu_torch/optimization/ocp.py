@@ -412,7 +412,7 @@ class OCP(Problem):
 
     # -- banded KKT structure ----------------------------------------------
 
-    def _make_kkt_backend(self, comp, device, syncs):
+    def _make_kkt_backend(self, comp, device, dtype, syncs):
         """The block-tridiagonal KKT backend when the problem's constraints
         all fit the stage band; None (the dense backend) otherwise."""
         structure = self._stage_structure(comp)
@@ -422,7 +422,7 @@ class OCP(Problem):
             structure,
             comp["f"], comp["c_e"], comp["c_i"],
             comp["n"], comp["me"], comp["mi"],
-            device, syncs,
+            device, syncs, dtype,
         )
 
     @staticmethod

@@ -449,24 +449,24 @@ class Problem:
     def _cache_key(self, kind: str, options: Options, device: torch.device):
         return (
             kind, self._structure_version, options.tolerance,
-            options.max_iterations, options.feasible_ipm, str(device),
+            options.max_iterations, options.feasible_ipm, options.dtype, str(device),
         )
 
     @staticmethod
-    def _unit_scaling(comp: dict, device: torch.device) -> ScalingArrays:
+    def _unit_scaling(comp: dict, device: torch.device, dtype: torch.dtype) -> ScalingArrays:
         """Scaling arrays of ones: the unscaled callbacks."""
         return ScalingArrays(
-            *(torch.ones(size, dtype=torch.float64, device=device)
+            *(torch.ones(size, dtype=dtype, device=device)
               for size in ((), comp["me"], comp["mi"]))
         )
 
-    def _backend(self, comp: dict, device: torch.device, me: int, mi: int):
+    def _backend(self, comp: dict, device: torch.device, dtype: torch.dtype, me: int, mi: int):
         """The stage-banded backend where the problem has OCP structure,
-        else the dense one."""
+        else the dense one, in the solve's dtype."""
         syncs = HostSyncs()
-        backend = self._make_kkt_backend(comp, device, syncs)
+        backend = self._make_kkt_backend(comp, device, dtype, syncs)
         if backend is None:
-            backend = DenseBackend(comp["n"], me, mi, device, syncs)
+            backend = DenseBackend(comp["n"], me, mi, device, syncs, dtype)
         return backend
 
     def _record(self, state, backend, syncs_before: int) -> tuple:
@@ -480,11 +480,11 @@ class Problem:
         """(reference problem.hpp:335-402). `spy` records nothing here:
         the JAX package records no Newton sparsity either."""
         prof = _DiagProfilers(options.diagnostics)
-        device = resolve_device(options.device)
+        device, dtype = resolve_device(options.device), options.torch_dtype
         key = self._cache_key("newton", options, device)
         cached = self._solver_cache.get(key)
         if cached is None:
-            comp["compiled"].prepare(device)
+            comp["compiled"].prepare(device, dtype)
             f_raw = comp["f"]
             g_fn, H_f_fn = grad(f_raw), hessian(f_raw)
             funcs = NewtonFunctions(
@@ -493,14 +493,14 @@ class Problem:
                 g=lambda x, p, sc: sc.f * g_fn(x, p),
                 H=lambda x, p, sc: sc.f * H_f_fn(x, p),
             )
-            backend = self._backend(comp, device, 0, 0)
+            backend = self._backend(comp, device, dtype, 0, 0)
             init, step = make_newton(funcs, options, backend=backend)
             cached = self._solver_cache[key] = (init, step, g_fn, backend)
         init, step, g_fn, backend = cached
         syncs_before = backend.syncs.count
 
         def on_device(a):
-            return torch.as_tensor(a, dtype=torch.float64, device=device)
+            return torch.as_tensor(a, dtype=dtype, device=device)
 
         # Scaling at the starting point (reference problem.hpp:379-382)
         with prof.phase("problem scaling"):
@@ -537,10 +537,11 @@ class Problem:
         cached = self._solver_cache.get(key)
         if cached is not None:
             return cached
-        comp["compiled"].prepare(device)
+        dtype = options.torch_dtype
+        comp["compiled"].prepare(device, dtype)
         f_raw, ce_raw = comp["f"], comp["c_e"]
         g_fn, H_f_fn, A_e_fn, _A_i_fn, H_c_fn = self._derivatives(comp)
-        empty = torch.zeros(0, dtype=torch.float64, device=device)
+        empty = torch.zeros(0, dtype=dtype, device=device)
         funcs = SQPFunctions(
             num_decision_variables=comp["n"],
             num_equality_constraints=comp["me"],
@@ -551,7 +552,7 @@ class Problem:
             c_e=lambda x, p, sc: sc.c_e * ce_raw(x, p),
             A_e=lambda x, p, sc: sc.c_e[:, None] * A_e_fn(x, p),
         )
-        backend = self._backend(comp, device, comp["me"], 0)
+        backend = self._backend(comp, device, dtype, comp["me"], 0)
         init, step, resume = make_sqp(funcs, options, backend=backend)
         cached = self._solver_cache[key] = (init, step, resume, funcs, g_fn, backend)
         return cached
@@ -563,9 +564,10 @@ class Problem:
         init, step, resume, funcs, g_fn, backend = self._prepare_sqp(comp, options, device)
         syncs_before = backend.syncs.count
         n, me = comp["n"], comp["me"]
+        dtype = backend.dtype
 
         def on_device(a):
-            return torch.as_tensor(a, dtype=torch.float64, device=device)
+            return torch.as_tensor(a, dtype=dtype, device=device)
 
         # Scaling at the starting point (reference problem.hpp:473-477):
         # per-row Jacobian norms from the banded probes, or the dense Aₑ.
@@ -574,7 +576,7 @@ class Problem:
                 scaling = self._ipm_scaling(g_fn, backend, x0, params)[0]
             else:
                 xd, pd = on_device(x0), on_device(params)
-                A_e0 = funcs.A_e(xd, pd, self._unit_scaling(comp, device)).cpu().numpy()
+                A_e0 = funcs.A_e(xd, pd, self._unit_scaling(comp, device, dtype)).cpu().numpy()
                 scaling = ProblemScaling.for_sqp(g_fn(xd, pd).cpu().numpy(), A_e0)
             sc = ScalingArrays(f=scaling.f, c_e=scaling.c_e, c_i=np.zeros(0))
 
@@ -582,7 +584,7 @@ class Problem:
             # The SQP callbacks as an interior-point parent without
             # inequalities (reference sqp.hpp:118-325), restored densely
             # as in the JAX package.
-            empty = torch.zeros(0, dtype=torch.float64, device=device)
+            empty = torch.zeros(0, dtype=dtype, device=device)
             shim = _ShimState(
                 x=state.x, s=empty, c_e=state.c_e, c_i=empty, mu=0.0, alpha=state.alpha,
                 iterations=state.iterations, filt=state.filt, g=state.g, f=state.f,
@@ -590,7 +592,7 @@ class Problem:
                 scaling=ScalingArrays(f=state.scaling.f, c_e=state.scaling.c_e, c_i=empty),
             )
             outcome, x_n, _s_n, y_n, _z_n, iters = restore(
-                _sqp_as_ipm_parent(funcs, n, me, device), shim, options,
+                _sqp_as_ipm_parent(funcs, n, me, device, dtype), shim, options,
                 base_mu=options.tolerance / 10.0, start_time=st_time,
             )
             if outcome == "resume":
@@ -636,7 +638,8 @@ class Problem:
         cached = self._solver_cache.get(key)
         if cached is not None:
             return cached
-        comp["compiled"].prepare(device)
+        dtype = options.torch_dtype
+        comp["compiled"].prepare(device, dtype)
         f_raw, ce_raw, ci_raw = comp["f"], comp["c_e"], comp["c_i"]
         g_fn, H_f_fn, A_e_fn, A_i_fn, H_c_fn = self._derivatives(comp)
         # The dense backend reads H, Aₑ and Aᵢ; the banded backend probes
@@ -654,12 +657,13 @@ class Problem:
             A_e=lambda x, p, sc: sc.c_e[:, None] * A_e_fn(x, p),
             A_i=lambda x, p, sc: sc.c_i[:, None] * A_i_fn(x, p),
         )
-        backend = self._backend(comp, device, comp["me"], comp["mi"])
+        backend = self._backend(comp, device, dtype, comp["me"], comp["mi"])
         init, step, resume = make_interior_point(funcs, options, backend=backend)
         cached = self._solver_cache[key] = (init, step, resume, funcs, g_fn, backend)
         return cached
 
-    def _make_kkt_backend(self, comp: dict, device: torch.device, syncs: HostSyncs):
+    def _make_kkt_backend(self, comp: dict, device: torch.device, dtype: torch.dtype,
+                          syncs: HostSyncs):
         """Hook for structured problems: OCP returns a banded backend when
         the stage structure allows it; None selects the dense backend."""
         return None
@@ -673,7 +677,7 @@ class Problem:
         detection."""
 
         def on_device(a):
-            return torch.as_tensor(a, dtype=torch.float64, device=backend.device)
+            return torch.as_tensor(a, dtype=backend.dtype, device=backend.device)
 
         g0 = g_fn(on_device(x0), on_device(params)).cpu().numpy()
         ce_loc, ce_next, ci_rows, ci_cols = backend.setup_rows(x0, params)
@@ -705,8 +709,8 @@ class Problem:
             scaling, ci_rows, ci_cols = self._ipm_scaling(g_fn, backend, x0, params)
             return scaling, (ci_rows, ci_cols)
         device = backend.device
-        xd, pd = (torch.as_tensor(a, dtype=torch.float64, device=device) for a in (x0, params))
-        ones = self._unit_scaling(comp, device)
+        xd, pd = (torch.as_tensor(a, dtype=backend.dtype, device=device) for a in (x0, params))
+        ones = self._unit_scaling(comp, device, backend.dtype)
         A_e0 = funcs.A_e(xd, pd, ones).cpu().numpy()
         A_i0 = funcs.A_i(xd, pd, ones).cpu().numpy()
         return ProblemScaling.for_ipm(g_fn(xd, pd).cpu().numpy(), A_e0, A_i0), A_i0
@@ -722,7 +726,7 @@ class Problem:
         banded = isinstance(backend, BandedBackend)
 
         def on_device(a):
-            return torch.as_tensor(a, dtype=torch.float64, device=device)
+            return torch.as_tensor(a, dtype=backend.dtype, device=device)
 
         pd = on_device(params)
 
@@ -816,8 +820,8 @@ class _ShimState:
         self.__dict__.update(kw)
 
 
-def _sqp_as_ipm_parent(funcs: SQPFunctions, n: int, me: int, device) -> IPMFunctions:
-    empty = torch.zeros(0, dtype=torch.float64, device=device)
+def _sqp_as_ipm_parent(funcs: SQPFunctions, n: int, me: int, device, dtype) -> IPMFunctions:
+    empty = torch.zeros(0, dtype=dtype, device=device)
     return IPMFunctions(
         num_decision_variables=n,
         num_equality_constraints=me,
@@ -829,7 +833,7 @@ def _sqp_as_ipm_parent(funcs: SQPFunctions, n: int, me: int, device) -> IPMFunct
         H=lambda x, y, z, p, sc: funcs.H(x, y, p, sc),
         H_c=lambda x, y, z, p, sc: funcs.H_c(x, y, p, sc),
         A_e=funcs.A_e,
-        A_i=lambda x, p, sc: torch.zeros((0, n), dtype=torch.float64, device=device),
+        A_i=lambda x, p, sc: torch.zeros((0, n), dtype=dtype, device=device),
     )
 
 

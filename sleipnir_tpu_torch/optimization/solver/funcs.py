@@ -26,25 +26,34 @@ class _Bound:
     """Callback struct with the runtime `params` and `scaling` bound as the
     trailing arguments of every callable (reference docs/usage.md
     "Suppressing constant pruning"; scaling is recomputed at every solve's
-    starting point, reference problem.hpp:616)."""
+    starting point, reference problem.hpp:616).
 
-    def __init__(self, funcs, params, scaling) -> None:
+    When `dtype` is given, every callable's output is cast to it, so that
+    a float64 value a problem function makes (a constant of its own, a
+    model's float64 table) does not promote a float32 solve's iterates
+    (the reference's Scalar template fixes the arithmetic type the same
+    way)."""
+
+    def __init__(self, funcs, params, scaling, dtype=None) -> None:
         self.params = params
         self.scaling = scaling
         for name in funcs._fields:
             value = getattr(funcs, name)
             if callable(value):
-                value = _bind_one(value, params, scaling)
+                value = _bind_one(value, params, scaling, dtype)
             setattr(self, name, value)
 
 
-def _bind_one(fn, params, scaling):
-    return lambda *args: fn(*args, params, scaling)
+def _bind_one(fn, params, scaling, dtype):
+    if dtype is None:
+        return lambda *args: fn(*args, params, scaling)
+    return lambda *args: fn(*args, params, scaling).to(dtype)
 
 
-def bind(funcs, params, scaling) -> _Bound:
-    """Bind params and scaling vectors into a callback struct."""
-    return _Bound(funcs, params, scaling)
+def bind(funcs, params, scaling, dtype=None) -> _Bound:
+    """Bind params and scaling vectors into a callback struct, with every
+    output cast to `dtype` when it is given."""
+    return _Bound(funcs, params, scaling, dtype)
 
 
 class NewtonFunctions(NamedTuple):

@@ -68,8 +68,6 @@ MAX_BACKTRACKS = 24  # α ≤ 1 halves below ALPHA_MIN within 24 steps
 DIVERGENCE_LIMIT = 1e10  # :405
 GAMMA_MIN = 1e-10  # :350-352
 
-_F64 = torch.float64
-
 
 class IPMState(NamedTuple):
     """Interior-point solver state: the reference's (x, s, y, z, μ,
@@ -164,7 +162,7 @@ def make_interior_point(
     mi = funcs.num_inequality_constraints
     if mi == 0:
         raise ValueError("the interior-point method needs inequality constraints")
-    device = backend.device
+    device, dtype = backend.device, backend.dtype
     syncs = backend.syncs
     tol = options.tolerance
     # Constraint regularization is forced to zero in feasibility
@@ -173,7 +171,7 @@ def make_interior_point(
     gamma_min = 0.0 if in_feasibility_restoration else GAMMA_MIN
 
     def tensor(a):
-        return torch.as_tensor(a, dtype=_F64, device=device)
+        return torch.as_tensor(a, dtype=dtype, device=device)
 
     # -- problem evaluations (CUDA graphs on the card) ----------------------
 
@@ -188,19 +186,19 @@ def make_interior_point(
     @graphs.wrap
     def evaluate(x, y, z, params, sc):
         """f, g, cₑ, cᵢ and the backend's derivatives at x."""
-        F = bind(funcs, params, sc)
+        F = bind(funcs, params, sc, dtype)
         return F.f(x), F.g(x), F.c_e(x), F.c_i(x), backend.eval_derivs(F, x, y, z)
 
     @graphs.wrap
     def values(x, params, sc):
-        F = bind(funcs, params, sc)
+        F = bind(funcs, params, sc, dtype)
         return F.f(x), F.c_e(x), F.c_i(x)
 
     @graphs.wrap
     def refresh(t: _Trial, params, sc):
         """Derivatives and KKT error at an accepted iterate (reference
         :808-826)."""
-        F = bind(funcs, params, sc)
+        F = bind(funcs, params, sc, dtype)
         g1 = F.g(t.x)
         d1 = backend.eval_derivs(F, t.x, t.y, t.z)
         AeT_y1, AiT_z1 = backend.AeT(d1, t.y), backend.AiT(d1, t.z)
@@ -213,7 +211,7 @@ def make_interior_point(
     def trip(alpha, alpha_z, p_x, p_s, p_y, p_z, x, s, y, z, mu, feasible_sub, filt,
              cost, cviol, D_phi, params, sc):
         """One trial of the backtracking line search (reference :512-556)."""
-        tx, ts, tf, tce, tci = trial_at(bind(funcs, params, sc), alpha, p_x, p_s, x, s,
+        tx, ts, tf, tce, tci = trial_at(bind(funcs, params, sc, dtype), alpha, p_x, p_s, x, s,
                                         feasible_sub)
         nonfinite = ~(torch.isfinite(tf) & torch.isfinite(tce).all() & torch.isfinite(tci).all())
         next_viol = viol(tce, tci, ts)
@@ -225,7 +223,7 @@ def make_interior_point(
     def soc_trial(x, s, y, z, p_x, p_s, p_y, p_z, tau, mu, filt, cost, cviol, D_phi, alpha,
                   params, sc):
         """A second-order correction's trial (reference :617-654)."""
-        F = bind(funcs, params, sc)
+        F = bind(funcs, params, sc, dtype)
         a = fraction_to_the_boundary(s, p_s, tau)
         az = fraction_to_the_boundary(z, p_z, tau)
         tx, ts = x + a * p_x, s + a * p_s
@@ -246,10 +244,10 @@ def make_interior_point(
         loop would stop at. `reset_counted` is whether the full-step
         rejection counter has reached 4. Returns (α,
         last_rejection_due_to_filter)."""
-        F = bind(funcs, params, sc)
+        F = bind(funcs, params, sc, dtype)
         idx = torch.arange(MAX_BACKTRACKS, device=x.device)
         alphas = alpha * ALPHA_REDUCTION_FACTOR ** torch.arange(
-            1, MAX_BACKTRACKS + 1, dtype=_F64, device=x.device
+            1, MAX_BACKTRACKS + 1, dtype=dtype, device=x.device
         )
         below = alphas * ALPHA_REDUCTION_FACTOR < ALPHA_MIN
         jlast = torch.argmax(below.to(torch.uint8))
@@ -283,7 +281,7 @@ def make_interior_point(
                      p_x, p_s, p_y, p_z, params, sc):
         """Whether the α_max step reduces the 1-norm KKT error (reference
         :691-716), and that step's trial."""
-        F = bind(funcs, params, sc)
+        F = bind(funcs, params, sc, dtype)
         cur_err = kkt_error_ipm_one_products(
             g, backend.AeT(derivs, y), backend.AiT(derivs, z), c_e, c_i, s, y, z, mu
         )

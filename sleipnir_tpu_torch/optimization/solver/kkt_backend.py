@@ -14,6 +14,7 @@ from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
 from sleipnir_tpu_torch.ops.ldlt import inertia, ldlt_factor, ldlt_solve
@@ -33,7 +34,25 @@ class RegLoopResult(NamedTuple):
 #: one thread block per candidate.
 LADDER = 4
 
-_EPS = float(torch.finfo(torch.float64).eps)
+
+def eps_of(dtype: torch.dtype) -> float:
+    """Machine epsilon of the solve's dtype."""
+    return float(torch.finfo(dtype).eps)
+
+
+def eps_inertia(dtype: torch.dtype) -> float:
+    """Pivot zero-threshold for inertia on an equilibrated system, whose
+    legitimate pivots are O(1): eps^0.75, ~1e-12 in float64 and ~2e-5 in
+    float32 (JAX package kkt_banded.py:739-743)."""
+    return eps_of(dtype) ** 0.75
+
+
+def ladder_depth(dtype: torch.dtype) -> int:
+    """Rungs of the ladder. float32 pivots near the inertia threshold are
+    noisy enough that a 4-rung smallest-ideal pick jumps between rungs and
+    can stall the solve; 2 rungs still spare the sequential (0, 0)
+    attempt (JAX package kkt_backend.py:53-65)."""
+    return 2 if dtype == torch.float32 else LADDER
 
 
 def take(tree, i: int):
@@ -53,86 +72,83 @@ def regularization_loop(
     gamma_min: float,
     syncs: HostSyncs,
 ) -> RegLoopResult:
-    """Inertia-correction escalation as a batched candidate ladder.
+    """Inertia-correction escalation as a batched candidate ladder, in the
+    dtype of `prev_delta`, the solve's.
 
     `factor_with(deltas, gammas)` factors one system per (δ, γ) pair (both
     (B,) tensors) and returns (fac, pos, neg, zero, failed), each with a
     leading batch axis B.
 
     One call factors {(0, 0), (δ₀, γ_min), (10δ₀, γ_min), (100δ₀, γ_min)}
-    and the SMALLEST candidate with ideal inertia wins. If none has it, a
-    sequential host loop takes over one decade above the top rung and
-    reproduces the reference's diagnosis-dependent δ/γ escalation
-    (sparse_regularized_ldlt.hpp:118-143) exactly.
+    (in float32 the first two) and the SMALLEST candidate with ideal
+    inertia wins. If none has it, a sequential host loop takes over one
+    decade above the top rung and reproduces the reference's
+    diagnosis-dependent δ/γ escalation (sparse_regularized_ldlt.hpp:118-143)
+    exactly, its host scalars rounded to the dtype as the JAX package's
+    device scalars are.
     """
-    device = prev_delta.device
+    device, dtype = prev_delta.device, prev_delta.dtype
+    ladder = ladder_depth(dtype)
+    scalar = np.float32 if dtype == torch.float32 else np.float64
     delta0 = torch.where(
         prev_delta == 0.0,
         torch.full_like(prev_delta, 1e-4),
-        torch.clamp(prev_delta / 2.0, min=_EPS),
+        torch.clamp(prev_delta / 2.0, min=eps_of(dtype)),
     )
-    zero1 = torch.zeros(1, dtype=torch.float64, device=device)
+    zero1 = torch.zeros(1, dtype=dtype, device=device)
     deltas = torch.cat(
-        [zero1, delta0 * 10.0 ** torch.arange(LADDER - 1, dtype=torch.float64, device=device)]
+        [zero1, delta0 * 10.0 ** torch.arange(ladder - 1, dtype=dtype, device=device)]
     )
-    gammas = torch.cat([zero1, torch.full((LADDER - 1,), gamma_min, dtype=torch.float64, device=device)])
+    gammas = torch.cat([zero1, torch.full((ladder - 1,), gamma_min, dtype=dtype, device=device)])
 
     lfac, lpos, lneg, lzero, lfailed = factor_with(deltas, gammas)
     lideal = (lpos == ideal_pos) & (lneg == ideal_neg) & (lzero == 0) & ~lfailed
-    ranks = torch.arange(LADDER, device=device)
-    pick = int(syncs.read(torch.min(torch.where(lideal, ranks, LADDER))))
-    if pick < LADDER:
+    ranks = torch.arange(ladder, device=device)
+    pick = int(syncs.read(torch.min(torch.where(lideal, ranks, ladder))))
+    if pick < ladder:
         return RegLoopResult(take(lfac, pick), deltas[pick], gammas[pick], True)
 
     # Sequential fallback, on host scalars: the branch needs them anyway.
-    delta = syncs.read(delta0) * 10.0 ** (LADDER - 1)
-    gamma = float(gamma_min)
+    ten = scalar(10.0)
+    delta = scalar(syncs.read(delta0)) * scalar(10.0 ** (ladder - 1))
+    gamma = scalar(gamma_min)
+
+    def tensor(v):
+        return torch.tensor(v, dtype=dtype, device=device)
+
     while True:
-        fac, pos, neg, zero, failed = factor_with(
-            torch.tensor([delta], dtype=torch.float64, device=device),
-            torch.tensor([gamma], dtype=torch.float64, device=device),
-        )
+        fac, pos, neg, zero, failed = factor_with(tensor([delta]), tensor([gamma]))
         pos, neg, zero, failed = syncs.read(pos[0], neg[0], zero[0], failed[0])
         failed = bool(failed)
         if pos == ideal_pos and neg == ideal_neg and zero == 0 and not failed:
-            return RegLoopResult(
-                take(fac, 0),
-                torch.tensor(delta, dtype=torch.float64, device=device),
-                torch.tensor(gamma, dtype=torch.float64, device=device),
-                True,
-            )
+            return RegLoopResult(take(fac, 0), tensor(delta), tensor(gamma), True)
         has_zero = zero > 0 and not failed
         too_negative = neg > ideal_neg and not failed and not has_zero
         too_positive = pos > ideal_pos and not failed and not has_zero and not too_negative
         if has_zero:
             if gamma == 0.0:
-                gamma = 1e-10
+                gamma = scalar(1e-10)
             else:
-                delta, gamma = delta * 10.0, gamma * 10.0
+                delta, gamma = delta * ten, gamma * ten
         elif too_negative:
-            delta = delta * 10.0
+            delta = delta * ten
         else:
             # Too positive keeps δ; a failed factorization raises both.
             if not too_positive:
-                delta = delta * 10.0
-            gamma = 1e-10 if gamma == 0.0 else gamma * 10.0
+                delta = delta * ten
+            gamma = scalar(1e-10) if gamma == 0.0 else gamma * ten
         if delta > 1e20 or gamma > 1e20:
-            return RegLoopResult(
-                take(lfac, LADDER - 1),
-                torch.tensor(delta, dtype=torch.float64, device=device),
-                torch.tensor(gamma, dtype=torch.float64, device=device),
-                False,
-            )
+            return RegLoopResult(take(lfac, ladder - 1), tensor(delta), tensor(gamma), False)
 
 
 # ---------------------------------------------------------------------------
 # Dense backend
 # ---------------------------------------------------------------------------
 
-#: Pivot zero-threshold for inertia on the equilibrated system, and the
-#: reference's small-pivot gate for the unregularized attempt
-#: (sparse_regularized_ldlt.hpp:82-83), as in the banded backend.
-EPS_INERTIA = _EPS**0.75
+#: The float64 inertia threshold, and the reference's small-pivot gate for
+#: the unregularized attempt (sparse_regularized_ldlt.hpp:82-83) in every
+#: dtype, as in the banded backend.
+EPS_INERTIA = eps_inertia(torch.float64)
 SMALL_PIVOT = 1e-4
 
 
@@ -169,17 +185,20 @@ class DenseFactor(NamedTuple):
 
 
 class DenseBackend:
-    """Dense derivative storage and the blocked dense LDLᵀ."""
+    """Dense derivative storage and the blocked dense LDLᵀ, in the solve's
+    dtype."""
 
-    def __init__(self, n: int, me: int, mi: int, device: torch.device, syncs: HostSyncs) -> None:
+    def __init__(self, n: int, me: int, mi: int, device: torch.device, syncs: HostSyncs,
+                 dtype: torch.dtype = torch.float64) -> None:
         self.n, self.me, self.mi = n, me, mi
         self.device = device
+        self.dtype = dtype
         self.syncs = syncs
         #: The CUDA graphs of the solver built on this backend.
         self.graphs = Graphs()
 
     def _zeros(self, *shape) -> torch.Tensor:
-        return torch.zeros(shape, dtype=torch.float64, device=self.device)
+        return torch.zeros(shape, dtype=self.dtype, device=self.device)
 
     # -- derivative evaluation --------------------------------------------
 
@@ -218,9 +237,9 @@ class DenseBackend:
     def regularization_diagonals(self):
         """The diagonals δ and γ scale: (1 on x, 0 on y) and (0, −1)."""
         n, me = self.n, self.me
-        ones = torch.ones(n, dtype=torch.float64, device=self.device)
+        ones = torch.ones(n, dtype=self.dtype, device=self.device)
         return (torch.cat([ones, self._zeros(me)]),
-                torch.cat([self._zeros(n), -torch.ones(me, dtype=torch.float64, device=self.device)]))
+                torch.cat([self._zeros(n), -torch.ones(me, dtype=self.dtype, device=self.device)]))
 
     def factor_candidates(self, A, deltas, gammas):
         """Equilibrate and factor B regularized systems A (B, N, N) at
@@ -228,7 +247,7 @@ class DenseBackend:
         zero, failed), each with the leading axis B."""
         A, s = _equilibrate_dense(A)
         L, dd = ldlt_factor(A)
-        pos, neg, zero = inertia(dd, EPS_INERTIA)
+        pos, neg, zero = inertia(dd, eps_inertia(self.dtype))
         small = (torch.abs(dd) < SMALL_PIVOT).any(dim=-1) & (deltas == 0.0) & (gammas == 0.0)
         failed = ~torch.isfinite(dd).all(dim=-1) | small
         return (L, dd, s), pos, neg, zero, failed

@@ -40,18 +40,17 @@ from sleipnir_tpu_torch.ops.block_tridiag import (
 from sleipnir_tpu_torch.ops.ldlt import ldlt_unblocked
 from sleipnir_tpu_torch.optimization.solver.kkt_backend import (
     RegLoopResult,
+    eps_inertia,
     regularization_loop,
 )
 from sleipnir_tpu_torch.optimization.solver.util.cuda_graph import Graphs
 from sleipnir_tpu_torch.optimization.solver.util.host_sync import HostSyncs
 
-_F64 = torch.float64
-_EPS = float(torch.finfo(_F64).eps)
-
-#: Pivot zero-threshold for inertia on the EQUILIBRATED system, whose
-#: legitimate pivots are O(1): anything below eps^0.75 (~1e-12) counts as
-#: zero and drives the δ/γ escalation (JAX package kkt_banded.py:739-743).
-EPS_INERTIA = _EPS**0.75
+#: Pivot zero-threshold for inertia on the EQUILIBRATED system in float64,
+#: whose legitimate pivots are O(1): anything below eps^0.75 (~1e-12)
+#: counts as zero and drives the δ/γ escalation (JAX package
+#: kkt_banded.py:739-743). A float32 backend uses its own dtype's.
+EPS_INERTIA = eps_inertia(torch.float64)
 
 #: The reference's small-pivot gate (sparse_regularized_ldlt.hpp:82-83):
 #: an unregularized factorization with |pivot| below it counts as failed.
@@ -140,7 +139,9 @@ class BandedFactor(NamedTuple):
 
 
 class BandedBackend:
-    """KKT backend exploiting OCP stage structure."""
+    """KKT backend exploiting OCP stage structure, in the solve's dtype:
+    probes, assembly, Ruiz scaling, the factor (K1/K2 instantiated for
+    float or double) and the border's Schur complement."""
 
     def __init__(
         self,
@@ -153,11 +154,14 @@ class BandedBackend:
         mi: int,
         device: torch.device,
         syncs: HostSyncs,
+        dtype: torch.dtype = torch.float64,
     ) -> None:
         st = structure
         self.structure = st
         self.n, self.me, self.mi = n, me, mi
         self.device = device
+        self.dtype = dtype
+        self.eps_inertia = eps_inertia(dtype)
         self.syncs = syncs
         #: The CUDA graphs of the solver built on this backend.
         self.graphs = Graphs()
@@ -191,9 +195,9 @@ class BandedBackend:
         probes_i = np.zeros((m, n))
         for j in range(m):
             probes_i[j, staged[:, j]] = 1.0
-        self._probes_e = dev(np.concatenate([probes_e, probes_b]), _F64)
-        self._probes_h = dev(np.concatenate([probes_h, probes_b]), _F64)
-        self._probes_i = dev(np.concatenate([probes_i, probes_b]), _F64)
+        self._probes_e = dev(np.concatenate([probes_e, probes_b]), dtype)
+        self._probes_h = dev(np.concatenate([probes_h, probes_b]), dtype)
+        self._probes_i = dev(np.concatenate([probes_i, probes_b]), dtype)
 
         # Gather/scatter indices
         self._border_pos = dev(border)
@@ -213,10 +217,10 @@ class BandedBackend:
         # Real (non-pad) equality slots per stage
         eq_count = np.bincount(ce_stage, minlength=K) if me else np.zeros(K, np.int64)
         self._eq_slot_real = dev(np.arange(p)[None, :] < eq_count[:, None], torch.bool)
-        self._eye_m = torch.eye(m, dtype=_F64, device=device)
+        self._eye_m = torch.eye(m, dtype=dtype, device=device)
 
     def _zeros(self, *shape) -> torch.Tensor:
-        return torch.zeros(shape, dtype=_F64, device=self.device)
+        return torch.zeros(shape, dtype=self.dtype, device=self.device)
 
     # -- helpers -----------------------------------------------------------
 
@@ -315,8 +319,8 @@ class BandedBackend:
             and the border;
           ci_cols (mi, m + nb): global column index of each ci_rows entry.
         """
-        x = torch.as_tensor(x0, dtype=_F64, device=self.device)
-        prm = torch.as_tensor(params, dtype=_F64, device=self.device)
+        x = torch.as_tensor(x0, dtype=self.dtype, device=self.device)
+        prm = torch.as_tensor(params, dtype=self.dtype, device=self.device)
         m, nb = self.m, self.nb
         if self.me > 0:
             Ue = vmap(lambda v: jvp(lambda xv: self.ce_raw(xv, prm), (x,), (v,))[1])(
@@ -446,17 +450,18 @@ class BandedBackend:
         neg, zero, failed), each with the leading axis B."""
         nb = self.nb
         B = deltas.shape[0]
+        eps = self.eps_inertia
         Ds, Es, s_eq = _equilibrate(D, E)
         fac = cuda_banded.banded_factor(Ds.contiguous(), Es.contiguous())
-        pos, neg, zero = block_tridiag_inertia(fac, EPS_INERTIA)
+        pos, neg, zero = block_tridiag_inertia(fac, eps)
         piv = fac.d.flatten(1)
         if nb > 0:
             # The border Schur complement's pivots count toward the
             # inertia and the gates like the band's, on the device.
             X, Lb, db = border_schur(fac, s_eq)
-            pos = pos + (db > EPS_INERTIA).sum(dim=1)
-            neg = neg + (db < -EPS_INERTIA).sum(dim=1)
-            zero = zero + nb - (db > EPS_INERTIA).sum(dim=1) - (db < -EPS_INERTIA).sum(dim=1)
+            pos = pos + (db > eps).sum(dim=1)
+            neg = neg + (db < -eps).sum(dim=1)
+            zero = zero + nb - (db > eps).sum(dim=1) - (db < -eps).sum(dim=1)
             piv = torch.cat([piv, db], dim=1)
         else:
             X = self._zeros(B, 0, self.K, self.w)
@@ -480,7 +485,7 @@ class BandedBackend:
         cols = col0.expand(deltas.shape[0], *col0.shape)
         X = tsolve(cols)
         X = X + tsolve(cols - self._kkt_matvec_staged(d, sigma, deltas[:, None], gammas[:, None], X))
-        eye = torch.eye(self.nb, dtype=_F64, device=self.device)
+        eye = torch.eye(self.nb, dtype=self.dtype, device=self.device)
         Sb = e0 + deltas[:, None, None] * eye - torch.einsum("akw,Bbkw->Bab", col0, X)
         Lb, db = ldlt_unblocked(Sb)
         return X, Lb, db

@@ -42,8 +42,6 @@ MAX_LINE_SEARCH_TRIPS = 96  # α halves from 1 past 1e-20 in ~67 steps
 DIVERGENCE_LIMIT = 1e10  # newton.hpp:166
 GAMMA_MIN = 1e-10
 
-_F64 = torch.float64
-
 
 class NewtonState(NamedTuple):
     x: torch.Tensor
@@ -69,14 +67,14 @@ def make_newton(funcs: NewtonFunctions, options: Options, *, backend):
     """Build (init, step) for Newton on a fixed problem shape, on the KKT
     backend `backend` (`kkt_backend.DenseBackend` for a dense Hessian)."""
     n = funcs.num_decision_variables
-    device = backend.device
+    device, dtype = backend.device, backend.dtype
     syncs = backend.syncs
     tol = options.tolerance
 
     def tensor(a):
-        return torch.as_tensor(a, dtype=_F64, device=device)
+        return torch.as_tensor(a, dtype=dtype, device=device)
 
-    empty = torch.zeros(0, dtype=_F64, device=device)
+    empty = torch.zeros(0, dtype=dtype, device=device)
     # The backends take (y, z)-dual callbacks; Newton has neither.
     ipm_funcs = IPMFunctions(
         num_decision_variables=n,
@@ -87,9 +85,9 @@ def make_newton(funcs: NewtonFunctions, options: Options, *, backend):
         c_e=lambda x, p, sc: empty,
         c_i=lambda x, p, sc: empty,
         H=lambda x, y, z, p, sc: funcs.H(x, p, sc),
-        H_c=lambda x, y, z, p, sc: torch.zeros((n, n), dtype=_F64, device=device),
-        A_e=lambda x, p, sc: torch.zeros((0, n), dtype=_F64, device=device),
-        A_i=lambda x, p, sc: torch.zeros((0, n), dtype=_F64, device=device),
+        H_c=lambda x, y, z, p, sc: torch.zeros((n, n), dtype=dtype, device=device),
+        A_e=lambda x, p, sc: torch.zeros((0, n), dtype=dtype, device=device),
+        A_i=lambda x, p, sc: torch.zeros((0, n), dtype=dtype, device=device),
     )
 
     # -- problem evaluations (CUDA graphs on the card) ----------------------
@@ -99,17 +97,18 @@ def make_newton(funcs: NewtonFunctions, options: Options, *, backend):
     @graphs.wrap
     def evaluate(x, params, sc):
         """f, g and the backend's Hessian at x."""
-        F = bind(funcs, params, sc)
-        return F.f(x), F.g(x), backend.eval_derivs(bind(ipm_funcs, params, sc), x, empty, empty)
+        F = bind(funcs, params, sc, dtype)
+        Fi = bind(ipm_funcs, params, sc, dtype)
+        return F.f(x), F.g(x), backend.eval_derivs(Fi, x, empty, empty)
 
     @graphs.wrap
     def cost_at(a, p_x, x, params, sc):
         tx = x + a * p_x
-        return tx, bind(funcs, params, sc).f(tx)
+        return tx, bind(funcs, params, sc, dtype).f(tx)
 
     @graphs.wrap
     def values(x, params, sc):
-        F = bind(funcs, params, sc)
+        F = bind(funcs, params, sc, dtype)
         return F.f(x), F.g(x)
 
     # -- init and iteration ------------------------------------------------

@@ -4,6 +4,11 @@ the solve runs on."""
 import dataclasses
 import math
 
+import torch
+
+#: The solver arithmetic each `Options.dtype` names.
+DTYPES = {"float64": torch.float64, "float32": torch.float32}
+
 
 @dataclasses.dataclass
 class Options:
@@ -27,6 +32,20 @@ class Options:
     #: Enables diagnostic output.
     diagnostics: bool = False
 
+    #: dtype for solver arithmetic ("float64" or "float32"): the
+    #: reference's Scalar template (reference src/optimization/problem.cpp:7).
+    #: The default 1e-8 tolerance needs float64.
+    dtype: str = "float64"
+
     #: torch device of the solve. A CUDA device that is absent raises; the
     #: solve never moves to the CPU on its own.
     device: str = "cuda"
+
+    def __post_init__(self) -> None:
+        if self.dtype not in DTYPES:
+            raise ValueError(f"dtype must be one of {sorted(DTYPES)}, got {self.dtype!r}")
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        """The torch dtype of the solve's iterates and KKT systems."""
+        return DTYPES[self.dtype]

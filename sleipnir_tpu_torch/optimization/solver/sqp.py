@@ -52,8 +52,6 @@ MAX_LINE_SEARCH_TRIPS = 64
 DIVERGENCE_LIMIT = 1e10  # sqp.hpp:273
 GAMMA_MIN = 1e-10
 
-_F64 = torch.float64
-
 
 class SQPState(NamedTuple):
     x: torch.Tensor
@@ -98,14 +96,14 @@ def make_sqp(funcs: SQPFunctions, options: Options, *, backend):
     the same seam as the interior-point method)."""
     n = funcs.num_decision_variables
     me = funcs.num_equality_constraints
-    device = backend.device
+    device, dtype = backend.device, backend.dtype
     syncs = backend.syncs
     tol = options.tolerance
 
     def tensor(a):
-        return torch.as_tensor(a, dtype=_F64, device=device)
+        return torch.as_tensor(a, dtype=dtype, device=device)
 
-    empty = torch.zeros(0, dtype=_F64, device=device)
+    empty = torch.zeros(0, dtype=dtype, device=device)
     # The backends take (y, z)-dual callbacks; with mᵢ = 0, Aᵢ and cᵢ
     # are empty.
     ipm_funcs = IPMFunctions(
@@ -119,7 +117,7 @@ def make_sqp(funcs: SQPFunctions, options: Options, *, backend):
         H=lambda x, y, z, p, sc: funcs.H(x, y, p, sc),
         H_c=lambda x, y, z, p, sc: funcs.H_c(x, y, p, sc),
         A_e=funcs.A_e,
-        A_i=lambda x, p, sc: torch.zeros((0, n), dtype=_F64, device=device),
+        A_i=lambda x, p, sc: torch.zeros((0, n), dtype=dtype, device=device),
     )
 
     # -- problem evaluations (CUDA graphs on the card) ----------------------
@@ -129,27 +127,27 @@ def make_sqp(funcs: SQPFunctions, options: Options, *, backend):
     @graphs.wrap
     def evaluate(x, y, params, sc):
         """f, g, cₑ and the backend's derivatives at x."""
-        F = bind(funcs, params, sc)
-        Fi = bind(ipm_funcs, params, sc)
+        F = bind(funcs, params, sc, dtype)
+        Fi = bind(ipm_funcs, params, sc, dtype)
         return F.f(x), F.g(x), F.c_e(x), backend.eval_derivs(Fi, x, y, empty)
 
     @graphs.wrap
     def values(x, params, sc):
-        F = bind(funcs, params, sc)
+        F = bind(funcs, params, sc, dtype)
         return F.f(x), F.c_e(x)
 
     @graphs.wrap
     def refresh(x, y, c_e, params, sc):
         """Derivatives and KKT error at an accepted iterate (reference
         sqp.hpp:560-575)."""
-        F = bind(funcs, params, sc)
+        F = bind(funcs, params, sc, dtype)
         g1 = F.g(x)
-        d1 = backend.eval_derivs(bind(ipm_funcs, params, sc), x, y, empty)
+        d1 = backend.eval_derivs(bind(ipm_funcs, params, sc, dtype), x, y, empty)
         return g1, d1, unscaled_kkt_error_sqp_products(sc, g1, backend.AeT(d1, y), c_e, y)
 
     @graphs.wrap
     def trial_at(a, px, py, x, y, params, sc):
-        F = bind(funcs, params, sc)
+        F = bind(funcs, params, sc, dtype)
         tx = x + a * px
         return _Trial(tx, y + a * py, F.f(tx), F.c_e(tx))
 
@@ -160,10 +158,10 @@ def make_sqp(funcs: SQPFunctions, options: Options, *, backend):
         the first candidate the sequential loop would stop at.
         `reset_counted` is whether the full-step rejection counter has
         reached 4. Returns (α, last_rejection_due_to_filter)."""
-        F = bind(funcs, params, sc)
+        F = bind(funcs, params, sc, dtype)
         idx = torch.arange(MAX_BACKTRACKS, device=x.device)
         alphas = alpha * ALPHA_REDUCTION_FACTOR ** torch.arange(
-            1, MAX_BACKTRACKS + 1, dtype=_F64, device=x.device
+            1, MAX_BACKTRACKS + 1, dtype=dtype, device=x.device
         )
         below = alphas * ALPHA_REDUCTION_FACTOR < ALPHA_MIN
         jlast = torch.argmax(below.to(torch.uint8))
@@ -196,7 +194,7 @@ def make_sqp(funcs: SQPFunctions, options: Options, *, backend):
         params = tensor(params)
         scaling = ScalingArrays(*(tensor(a) for a in scaling))
         x0 = tensor(x0)
-        y0 = torch.zeros(me, dtype=_F64, device=device) if y0 is None else tensor(y0)
+        y0 = torch.zeros(me, dtype=dtype, device=device) if y0 is None else tensor(y0)
         f, g, c_e, derivs = evaluate(x0, y0, params, scaling)
         finite = (
             torch.isfinite(f) & torch.isfinite(g).all() & torch.isfinite(c_e).all()

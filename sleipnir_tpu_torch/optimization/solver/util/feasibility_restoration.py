@@ -57,9 +57,6 @@ RHO = 1e3  # reference feasibility_restoration.hpp:391
 #: parent always estimates them, as in the JAX package.
 DENSE_DUALS_MAX = 6000
 
-_F64 = torch.float64
-
-
 def compute_p_n(c: np.ndarray, rho: float, mu: float):
     """Initialize relaxation slacks p, n via Ipopt eq (33)
     (reference feasibility_restoration.hpp:52-100)."""
@@ -145,7 +142,7 @@ def restore(
     # (reference :423-430).
     psc = parent_state.scaling
     fr_scaling = ScalingArrays(
-        f=torch.ones((), dtype=_F64, device=psc.c_e.device),
+        f=psc.c_e.new_ones(()),
         c_e=psc.c_e,
         c_i=torch.cat([psc.c_i, psc.c_i.new_ones(solver["n_extra"])]),
     )
@@ -162,7 +159,7 @@ def restore(
     params = parent_state.params
 
     def parent_rows(x):
-        xt = torch.as_tensor(x, dtype=_F64, device=params.device)
+        xt = torch.as_tensor(x, dtype=params.dtype, device=params.device)
         return _numpy(parent.c_e(xt, params, psc)), _numpy(parent.c_i(xt, params, psc))
 
     def resume_duals(x_res, s_res):
@@ -171,7 +168,7 @@ def restore(
         # duals reset and the parent re-estimates them within a few
         # iterations.
         if not banded or n + mi <= DENSE_DUALS_MAX:
-            xt = torch.as_tensor(x_res, dtype=_F64, device=params.device)
+            xt = torch.as_tensor(x_res, dtype=params.dtype, device=params.device)
             g_new = _numpy(parent.g(xt, params, psc))
             if banded:
                 A_e, A_i = _dense_jacobians(parent_backend, x_res, params, psc)
@@ -257,12 +254,12 @@ def _stop_check(parent, parent_state, x_r, s_r, mu: float, init_viol: float):
     n = parent.num_decision_variables
     mi = parent.num_inequality_constraints
     psc = parent_state.scaling
-    device = parent_state.x.device
-    x_r_t = torch.as_tensor(x_r, dtype=_F64, device=device)
-    s_r_t = torch.as_tensor(s_r, dtype=_F64, device=device)
+    device, dtype = parent_state.x.device, parent_state.x.dtype
+    x_r_t = torch.as_tensor(x_r, dtype=dtype, device=device)
+    s_r_t = torch.as_tensor(s_r, dtype=dtype, device=device)
     s_r_log = float(np.sum(np.log(s_r))) if mi > 0 else 0.0
-    init_cost = torch.as_tensor(float(parent_state.f) - mu * s_r_log, dtype=_F64, device=device)
-    init_viol_t = torch.as_tensor(init_viol, dtype=_F64, device=device)
+    init_cost = torch.as_tensor(float(parent_state.f) - mu * s_r_log, dtype=dtype, device=device)
+    init_viol_t = torch.as_tensor(init_viol, dtype=dtype, device=device)
     alpha = parent_state.alpha
     parent_g = parent_state.g
     parent_filter = parent_state.filt
@@ -292,20 +289,20 @@ def _dense_fr_solver(parent, parent_state, options, syncs: HostSyncs, x_r, s_r, 
     n = parent.num_decision_variables
     me = parent.num_equality_constraints
     mi = parent.num_inequality_constraints
-    device = parent_state.x.device
+    device, dtype = parent_state.x.device, parent_state.x.dtype
     psc = parent_state.scaling
     n_extra = 2 * me + 2 * mi
     N = n + n_extra
     MI = mi + n_extra
-    x_r_t = torch.as_tensor(x_r, dtype=_F64, device=device)
-    D_r_t = torch.as_tensor(D_r, dtype=_F64, device=device)
+    x_r_t = torch.as_tensor(x_r, dtype=dtype, device=device)
+    D_r_t = torch.as_tensor(D_r, dtype=dtype, device=device)
 
     def zeros(*shape):
-        return torch.zeros(shape, dtype=_F64, device=device)
+        return torch.zeros(shape, dtype=dtype, device=device)
 
-    eye_e = torch.eye(me, dtype=_F64, device=device)
-    eye_i = torch.eye(mi, dtype=_F64, device=device)
-    rho_tail = torch.full((n_extra,), RHO, dtype=_F64, device=device)
+    eye_e = torch.eye(me, dtype=dtype, device=device)
+    eye_i = torch.eye(mi, dtype=dtype, device=device)
+    rho_tail = torch.full((n_extra,), RHO, dtype=dtype, device=device)
 
     def fr_f(xp, params, sc):
         diff = xp[:n] - x_r_t
@@ -338,7 +335,7 @@ def _dense_fr_solver(parent, parent_state, options, syncs: HostSyncs, x_r, s_r, 
         out[:mi, :n] = parent.A_i(xp[:n], params, psc)
         out[:mi, n + 2 * me : n + 2 * me + mi] = -eye_i
         out[:mi, n + 2 * me + mi :] = eye_i
-        out[mi:, n:] = torch.eye(n_extra, dtype=_F64, device=device)
+        out[mi:, n:] = torch.eye(n_extra, dtype=dtype, device=device)
         return out
 
     fr_funcs = IPMFunctions(
@@ -354,7 +351,7 @@ def _dense_fr_solver(parent, parent_state, options, syncs: HostSyncs, x_r, s_r, 
         A_e=fr_A_e,
         A_i=fr_A_i,
     )
-    fr_backend = DenseBackend(N, me, MI, device, syncs)
+    fr_backend = DenseBackend(N, me, MI, device, syncs, dtype)
     fr_init, fr_step, _ = make_interior_point(
         fr_funcs, options, backend=fr_backend, in_feasibility_restoration=True,
         stop_check=_stop_check(parent, parent_state, x_r, s_r, mu, init_viol),
@@ -370,7 +367,7 @@ def _banded_fr_solver(parent, parent_state, options, parent_backend, x_r, s_r, D
     n = parent.num_decision_variables
     me = parent.num_equality_constraints
     mi = parent.num_inequality_constraints
-    device = parent_backend.device
+    device, dtype = parent_backend.device, parent_backend.dtype
     st = parent_backend.structure
     K, m, p, q = st.num_stages, st.stage_width, st.eq_pad, st.ineq_pad
     e2 = 2 * (p + q)  # relaxation slots per stage (incl. padded slots)
@@ -397,10 +394,10 @@ def _banded_fr_solver(parent, parent_state, options, parent_backend, x_r, s_r, D
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
 
     pe_t, ne_t, pi_t, ni_t = (dev(a) for a in (pe_idx, ne_idx, pi_idx, ni_idx))
-    x_r_t, D_r_t = dev(x_r, _F64), dev(D_r, _F64)
+    x_r_t, D_r_t = dev(x_r, dtype), dev(D_r, dtype)
     ones_sc = ScalingArrays(
-        f=dev(1.0, _F64), c_e=torch.ones(me, dtype=_F64, device=device),
-        c_i=torch.ones(mi, dtype=_F64, device=device),
+        f=dev(1.0, dtype), c_e=torch.ones(me, dtype=dtype, device=device),
+        c_i=torch.ones(mi, dtype=dtype, device=device),
     )
 
     def fr_f_raw(xp, prm):
@@ -442,9 +439,9 @@ def _banded_fr_solver(parent, parent_state, options, parent_backend, x_r, s_r, D
     )
     fr_backend = BandedBackend(
         fr_structure, fr_f_raw, fr_ce_raw, fr_ci_raw, N2, me, MI2, device,
-        parent_backend.syncs,
+        parent_backend.syncs, dtype,
     )
-    rho_tail = torch.full((N2 - n,), RHO, dtype=_F64, device=device)
+    rho_tail = torch.full((N2 - n,), RHO, dtype=dtype, device=device)
     fr_funcs = IPMFunctions(
         num_decision_variables=N2,
         num_equality_constraints=me,

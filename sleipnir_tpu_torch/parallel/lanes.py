@@ -69,9 +69,9 @@ from sleipnir_tpu_torch.optimization.solver.interior_point import (
     viol,
 )
 from sleipnir_tpu_torch.optimization.solver.kkt_backend import (
-    _EPS,
-    LADDER,
     DenseFactor,
+    eps_of,
+    ladder_depth,
 )
 from sleipnir_tpu_torch.optimization.solver.kkt_banded import (
     BandedBackend,
@@ -92,9 +92,6 @@ from sleipnir_tpu_torch.optimization.solver.util.kkt_error import (
 from sleipnir_tpu_torch.optimization.solver.util.step_rules import (
     fraction_to_the_boundary,
 )
-
-_F64 = torch.float64
-
 
 def merge(mask: torch.Tensor, new, old):
     """Per lane, `new` where `mask` (L,) holds, else `old`: tensors or
@@ -120,32 +117,34 @@ def lane_regularization_loop(factor_with, ideal_pos, ideal_neg, prev_delta, gamm
     `factor_with(deltas, gammas)` takes (L, C) regularizations and factors
     all L·C systems as one batch, returning (fac with leading axis L·C,
     pos, neg, zero, failed each (L, C)). Each lane picks its smallest
-    ideal rung of the 4-wide ladder on the device; the sequential
+    ideal rung of the ladder (4 wide, 2 in float32, in the dtype of
+    `prev_delta`) on the device; the sequential
     escalation runs only while some lane of `need` has none, one batch of
     L systems per trip. Returns (fac (L, ...), delta (L,), gamma (L,),
     ok (L,))."""
     L = prev_delta.shape[0]
-    device = prev_delta.device
+    device, dtype = prev_delta.device, prev_delta.dtype
+    ladder = ladder_depth(dtype)
     lane = torch.arange(L, device=device)
     delta0 = torch.where(
         prev_delta == 0.0,
         torch.full_like(prev_delta, 1e-4),
-        torch.clamp(prev_delta / 2.0, min=_EPS),
+        torch.clamp(prev_delta / 2.0, min=eps_of(dtype)),
     )
-    zeros = torch.zeros((L, 1), dtype=_F64, device=device)
-    rungs = 10.0 ** torch.arange(LADDER - 1, dtype=_F64, device=device)
+    zeros = torch.zeros((L, 1), dtype=dtype, device=device)
+    rungs = 10.0 ** torch.arange(ladder - 1, dtype=dtype, device=device)
     deltas = torch.cat([zeros, delta0[:, None] * rungs], dim=1)
     gammas = torch.cat(
-        [zeros, torch.full((L, LADDER - 1), gamma_min, dtype=_F64, device=device)], dim=1
+        [zeros, torch.full((L, ladder - 1), gamma_min, dtype=dtype, device=device)], dim=1
     )
 
     lfac, lpos, lneg, lzero, lfailed = factor_with(deltas, gammas)
     lideal = (lpos == ideal_pos) & (lneg == ideal_neg) & (lzero == 0) & ~lfailed
-    ranks = torch.arange(LADDER, device=device)
-    pick = torch.min(torch.where(lideal, ranks, LADDER), dim=1).values
-    have = pick < LADDER
-    rung = torch.clamp(pick, max=LADDER - 1)
-    fac = take(lfac, lane * LADDER + rung)
+    ranks = torch.arange(ladder, device=device)
+    pick = torch.min(torch.where(lideal, ranks, ladder), dim=1).values
+    have = pick < ladder
+    rung = torch.clamp(pick, max=ladder - 1)
+    fac = take(lfac, lane * ladder + rung)
     delta, gamma, ok = deltas[lane, rung], gammas[lane, rung], have
     todo = need & ~have
     if not syncs.read(todo.any()):
@@ -154,7 +153,7 @@ def lane_regularization_loop(factor_with, ideal_pos, ideal_neg, prev_delta, gamm
     # Sequential fallback one decade above the top rung: the reference's
     # diagnosis-dependent δ/γ escalation (sparse_regularized_ldlt.hpp:118-143)
     # per lane, on device scalars.
-    d_f = delta0 * 10.0 ** (LADDER - 1)
+    d_f = delta0 * 10.0 ** (ladder - 1)
     g_f = torch.full_like(d_f, gamma_min)
     while True:
         f1, pos, neg, zero, failed = factor_with(d_f[:, None], g_f[:, None])
@@ -227,7 +226,7 @@ class _BandedLanes:
 
         AX = vmap(matvec)(d, sigma, deltas, gammas, X.view(L, C, *shape))
         X = X + tsolve(cols - AX.reshape(X.shape))
-        eye = torch.eye(b.nb, dtype=_F64, device=b.device)
+        eye = torch.eye(b.nb, dtype=b.dtype, device=b.device)
         Sb = (e0[:, None] + deltas[..., None, None] * eye
               - torch.einsum("lakw,lcbkw->lcab", col0, X.view(L, C, *shape)))
         Lb, db = ldlt_unblocked(Sb.reshape(L * C, b.nb, b.nb))
@@ -304,13 +303,13 @@ def make_lane_interior_point(funcs: IPMFunctions, options: Options, *, backend):
     mi = funcs.num_inequality_constraints
     if mi == 0:
         raise ValueError("the interior-point method needs inequality constraints")
-    device = backend.device
+    device, dtype = backend.device, backend.dtype
     syncs = backend.syncs
     tol = options.tolerance
     lanes = _BandedLanes(backend) if isinstance(backend, BandedBackend) else _DenseLanes(backend)
 
     def tensor(a):
-        return torch.as_tensor(a, dtype=_F64, device=device)
+        return torch.as_tensor(a, dtype=dtype, device=device)
 
     def on_lanes(fn):
         """vmap over lanes of fn(*lane_args, params), params shared."""
@@ -326,7 +325,7 @@ def make_lane_interior_point(funcs: IPMFunctions, options: Options, *, backend):
     # -- per-lane functions (one lane's tensors, as in the serial step) ----
 
     def F_of(sc, params):
-        return bind(funcs, params, sc)
+        return bind(funcs, params, sc, dtype)
 
     @graphed
     @on_lanes
@@ -340,7 +339,7 @@ def make_lane_interior_point(funcs: IPMFunctions, options: Options, *, backend):
         )
         E0 = unscaled_kkt_error_ipm_products(
             sc, g, backend.AeT(derivs, y0), backend.AiT(derivs, z0), c_e, c_i, s0, y0, z0,
-            torch.zeros((), dtype=_F64, device=device),
+            torch.zeros((), dtype=dtype, device=device),
         )
         return f, g, c_e, c_i, derivs, finite, E0, make_filter(viol(c_e, c_i, s0))
 
@@ -431,7 +430,7 @@ def make_lane_interior_point(funcs: IPMFunctions, options: Options, *, backend):
         F = F_of(sc, params)
         idx = torch.arange(MAX_BACKTRACKS, device=device)
         alphas = alpha * ALPHA_REDUCTION_FACTOR ** torch.arange(
-            1, MAX_BACKTRACKS + 1, dtype=_F64, device=device
+            1, MAX_BACKTRACKS + 1, dtype=dtype, device=device
         )
         below = alphas * ALPHA_REDUCTION_FACTOR < ALPHA_MIN
         jlast = torch.argmax(below.to(torch.uint8))
@@ -506,7 +505,7 @@ def make_lane_interior_point(funcs: IPMFunctions, options: Options, *, backend):
         AeT_y1, AiT_z1 = backend.AeT(d1, t.y), backend.AiT(d1, t.z)
         E0 = unscaled_kkt_error_ipm_products(
             sc, g1, AeT_y1, AiT_z1, t.c_e, t.c_i, t.s, t.y, t.z,
-            torch.zeros((), dtype=_F64, device=device),
+            torch.zeros((), dtype=dtype, device=device),
         )
         return g1, d1, AeT_y1, AiT_z1, E0
 
@@ -531,8 +530,8 @@ def make_lane_interior_point(funcs: IPMFunctions, options: Options, *, backend):
         else:
             status = status_where(E0 <= tol, ExitStatus.SUCCESS, status)
             status = status_where(~finite, ExitStatus.NONFINITE_INITIAL_GUESS, status)
-        zero = torch.zeros(L, dtype=_F64, device=device)
-        one = torch.ones(L, dtype=_F64, device=device)
+        zero = torch.zeros(L, dtype=dtype, device=device)
+        one = torch.ones(L, dtype=dtype, device=device)
         count = torch.zeros(L, dtype=torch.int64, device=device)
         return IPMState(
             x=x0, s=s0, y=y0, z=z0, mu=mu0, tau=torch.full_like(one, TAU_MIN),

@@ -17,6 +17,7 @@ from sleipnir_tpu_torch.interop import banded_system_from_numpy
 from sleipnir_tpu_torch.ops import block_tridiag as tbt
 from sleipnir_tpu_torch.ops import cuda_banded, cuda_dd_probe
 from sleipnir_tpu_torch.ops import dd as plain_dd
+from sleipnir_tpu_torch.optimization.solver import kkt_backend as tkb
 from sleipnir_tpu_torch.optimization.solver.kkt_banded import EPS_INERTIA
 
 
@@ -234,8 +235,15 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     Dg, Eg, _ = banded_system_from_numpy(D, E, np.zeros((1, 5, 38)), cuda_device)
     with pytest.raises(ValueError, match="unsupported shape"):
         cuda_banded.banded_factor(Dg, Eg)
-    with pytest.raises(ValueError, match="float64"):
-        cuda_banded.banded_factor(Dg[..., :4, :4].float().contiguous(), Eg[..., :4, :4].float().contiguous())
+    D4, E4 = Dg[..., :4, :4].contiguous(), Eg[..., :4, :4].contiguous()
+    with pytest.raises(ValueError, match="float64 or torch.float32"):
+        cuda_banded.banded_factor(D4.half(), E4.half())
+    with pytest.raises(ValueError, match="E must be torch.float64"):
+        cuda_banded.banded_factor(D4, E4.float())
+    fac = cuda_banded.banded_factor(D4, E4)
+    with pytest.raises(ValueError, match="LU must be torch.float32"):
+        b32 = torch.zeros((1, 5, 4), dtype=torch.float32, device=cuda_device)
+        cuda_banded.banded_solve(fac, b32)
     with pytest.raises(ValueError, match="contiguous"):
         cuda_banded.banded_factor(Dg[..., :4, :4], Eg[..., :4, :4])
 
@@ -311,3 +319,77 @@ def test_dd_probe_onehot_product_exact_at_every_width(cuda_device):
         Pg, Xg = torch.as_tensor(P, device=cuda_device), torch.as_tensor(X, device=cuda_device)
         out = cuda_dd_probe.onehot_product(Pg, Xg).cpu().numpy()
         np.testing.assert_array_equal(out.view(np.int32), (P @ X).view(np.int32))
+
+
+# -- float32 (the float32 solve's instantiation of K1/K2) --------------------
+
+#: The float32 kernels against the float32 twin: relative difference of
+#: the solutions, unrefined, on well-conditioned stages (|λ| in [20, 40]):
+#: float32 eps is 1.2e-7, and two orders of operations differ by a few
+#: hundred ulps over thousands of stages at most.
+F32_REL_TOL = 1e-4
+EPS_INERTIA_F32 = tkb.eps_inertia(torch.float32)
+
+
+def _f32_system(B, K, w, r=None):
+    D, E, b = _conditioned_system(np.random.default_rng(B * K + w + 32), B, K, w)
+    if r is not None:
+        b = np.random.default_rng(r).standard_normal((B, K, w, r))
+    return D, E, b
+
+
+def _assert_f32_match(fk, fp, bg):
+    assert fk.LU.dtype == fk.d.dtype == fk.X.dtype == torch.float32
+    xk = cuda_banded.banded_solve(fk, bg)
+    assert xk.dtype == torch.float32
+    torch.cuda.synchronize()
+    xp = tbt.block_tridiag_solve(fp, bg)
+    assert _rel(xk, xp) <= F32_REL_TOL
+    assert _rel(tbt.block_tridiag_solve(fk, bg), xp) <= F32_REL_TOL
+    assert _rel(cuda_banded.banded_solve(fp, bg), xp) <= F32_REL_TOL
+    for a, c in zip(tbt.block_tridiag_inertia(fk, EPS_INERTIA_F32),
+                    tbt.block_tridiag_inertia(fp, EPS_INERTIA_F32)):
+        assert torch.equal(a, c)
+    assert torch.equal(fk.perm, fp.perm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "B,K,w,r",
+    [
+        # The float32 flywheel's ladder (2 rungs) and step at N=60, the
+        # lanes' ladder at 4 lanes, restoration's width and a multi-rhs.
+        (2, 61, 4, None), (1, 61, 4, None), (8, 61, 4, None), (4, 61, 4, None),
+        (2, 40, 37, None), (1, 101, 13, 3), (3, 1, 4, None),
+    ],
+)
+def test_f32_kernels_match_twin_on_card(cuda_device, B, K, w, r):
+    D, E, b = _f32_system(B, K, w, r)
+    Dg, Eg, bg = banded_system_from_numpy(D, E, b, cuda_device, torch.float32)
+    before = (cuda_banded.FACTOR_LAUNCHES, cuda_banded.FACTOR_LAUNCHES_F32,
+              cuda_banded.LAUNCHES_BY_SHAPE["factor_f32", B, K, w])
+    fk = cuda_banded.banded_factor(Dg, Eg)
+    assert (cuda_banded.FACTOR_LAUNCHES, cuda_banded.FACTOR_LAUNCHES_F32,
+            cuda_banded.LAUNCHES_BY_SHAPE["factor_f32", B, K, w]) == (
+        before[0], before[1] + 1, before[2] + 1)
+    _assert_f32_match(fk, tbt.block_tridiag_factor(Dg, Eg), bg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 2])
+@pytest.mark.parametrize("w", [1, 5, 6, 31, 32, 33, 37])
+def test_f32_kernels_match_twin_at_width_edges(cuda_device, B, w):
+    D, E, b = _f32_system(B, 9, w)
+    Dg, Eg, bg = banded_system_from_numpy(D, E, b, cuda_device, torch.float32)
+    _assert_f32_match(cuda_banded.banded_factor(Dg, Eg), tbt.block_tridiag_factor(Dg, Eg), bg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,K,w", [(2, 1001, 4), (1, 1001, 4), (2, 5001, 4), (1, 5001, 4),
+                                   (2, 1001, 9)])
+def test_f32_kernels_match_twin_at_long_horizons(cuda_device, B, K, w):
+    """The float32 flywheel at N=1000 and N=5000 (K1 at B=2, K2 at B=1)
+    and its restoration system's width at N=1000."""
+    D, E, b = _f32_system(B, K, w)
+    Dg, Eg, bg = banded_system_from_numpy(D, E, b, cuda_device, torch.float32)
+    _assert_f32_match(cuda_banded.banded_factor(Dg, Eg), tbt.block_tridiag_factor(Dg, Eg), bg)

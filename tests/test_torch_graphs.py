@@ -201,6 +201,24 @@ CASES = {
                        [np.array([3.0]), np.array([2.0]), np.array([-1.0])], 16),
         {"soc_trial", "jump", "kkt_fallback"},
     ),
+    # The float32 solve (`Options.dtype`): its own evaluations, in float32.
+    "flywheel N=20 in float32 (banded IPM)": (
+        lambda: _solve(flywheel.flywheel_problem(N=20)[0], dtype="float32", tolerance=1e-2,
+                       max_iterations=20),
+        {"evaluate", "trip", "refresh"},
+    ),
+    "README example in float32 (dense SQP)": (
+        lambda: _solve(_small(_readme, [1.0, 2.0]), dtype="float32", tolerance=1e-4),
+        {"evaluate", "trial_at", "refresh"},
+    ),
+    "lanes L=3 at cart-pole N=12 in float32": (
+        lambda: solve_ipm_batched(
+            cart_pole.cart_pole_problem(N=12)[0],
+            [0.01 * k * np.ones(5 * 13) for k in range(3)],
+            tslp.Options(device="cpu", dtype="float32", tolerance=1e-2), max_iterations=3,
+        ),
+        {"lane_init", "trip", "refresh"},
+    ),
 }
 
 
