@@ -77,18 +77,29 @@ just before each path (phases 4-12) and read just after it.
      counts at 0 just before it, no float64 kernel launch and no float64
      tensor in any graphed call: the three scalar problems of the JAX
      package's test_dtype_axis.py (Newton, SQP, the dense IPM) to 1e-4;
-     the flywheel at N=60 to 1e-2 (SUCCESS, x_N within 5 of 10), at
-     N=1000 and at N=5000 (feasibility restoration fails, as in the JAX
-     package, after running its banded system on the float32 kernels);
+     the flywheel at N=60 to 1e-2 (SUCCESS, x_N within 5 of 10) and at
+     N=1000 (feasibility restoration fails, as in the JAX package, after
+     running its banded system on the float32 kernels);
      4 lanes of the flywheel at N=60 by `solve_ipm_batched`; a cached
      float64 problem re-solved in float32 (new captures, equal to a fresh
      float32 problem bit for bit); then K1/K2 in float32 against the
-     float32 twin at every float32 shape the paths launched, at (2, 40,
-     37) and at the width edges (inertia and pivots equal, solutions to
+     float32 twin at every float32 shape the paths launched, at the
+     flywheel's N=5000 shapes (2 and 1, 5001, 4 and 12), at (2, 40, 37)
+     and at the width edges (inertia and pivots equal, solutions to
      1e-4 relative on well-conditioned stages), each path shape timed
      beside the float64 kernels at the same shape and its bound at 4-byte
      words. Every status is printed beside the JAX package's, with its
      iterations.
+ 15. examples: every program of `sleipnir_tpu_torch/examples` at its
+     published size (the flywheel OCP at N=100 on the banded backend,
+     with K1 at (4, 101, 4) and K2 at (1, 101, 4); on the dense backend
+     the current manager, the flywheel by direct transcription at N=100,
+     the multi-tag pose, the FRC 2022 shooter at N=30, the FRC 2024
+     shooter at N=10 and G-FOLD at N=25), each held to the JAX
+     package's exit status and values on a CPU (`EXAMPLES_JAX`; G-FOLD to
+     its class, infeasible), then one point of each scalability sweep of
+     `sleipnir_tpu_torch.tools.scalability` (flywheel N=1000, cart-pole
+     N=100), which must reach SUCCESS and write the reference schema.
 
 Phases 4-12 print each path's iterations and time per iteration beside
 the figures from before the problem evaluations ran as CUDA graphs,
@@ -198,11 +209,16 @@ GRAPH_PATHS = {"cart-pole": None, "flywheel": None, "restoration": None,
 #: to what the JAX package's float32 path gives on a CPU (`f32_reference.py`,
 #: PERF.md §6): the scalar problems of tests/optimization/test_dtype_axis.py
 #: (name: JAX iterations) to 1e-4 with their atol 1e-2, and the flywheel at
-#: N=60, 1000 and 5000 to 1e-2 (N: JAX status and iterations).
+#: N=60 and 1000 to 1e-2 (N: JAX status and iterations). The flywheel's
+#: float32 path runs at N=1000, not at N=5000, where its last restoration
+#: runs to the 5,000-iteration cap (484 s, as the JAX package's does;
+#: PERF.md §5) and would take the script past its time; K1/K2 in float32
+#: at the N=5000 path's shapes, `F32_LONG_SHAPES` (B, K, w), stay held
+#: against the float32 twin and timed.
 F32_N = 60
 F32_SCALAR_JAX_ITERATIONS = {"Newton": 1, "SQP": 1, "IPM": 5}
-F32_FLYWHEEL_JAX = {60: ("SUCCESS", 1404), 1000: ("FEASIBILITY_RESTORATION_FAILED", 577),
-                    5000: ("FEASIBILITY_RESTORATION_FAILED", 197)}
+F32_FLYWHEEL_JAX = {60: ("SUCCESS", 1404), 1000: ("FEASIBILITY_RESTORATION_FAILED", 577)}
+F32_LONG_SHAPES = [(2, 5001, 4), (1, 5001, 4), (2, 5001, 12), (1, 5001, 12)]
 #: 4 lanes of the flywheel at N=60 in float32 from 0.01·k·randn(n) (seed
 #: 0): the JAX package's `solve_ipm_batched` statuses and iterations. Every
 #: lane ends asking for restoration (status 101), which a lane of the
@@ -218,6 +234,34 @@ F32_REL_TOL = 1e-4
 #: ⌈K·w/8⌉·4096 bytes over its 3.5 MB single-shot budget
 #: (sleipnir_tpu/ops/pallas_banded.py:471, :491-493).
 TPU_CHUNKED_ROWS = 6833
+#: The examples (phase 15, `sleipnir_tpu_torch/examples/`) at their
+#: published sizes, and what the JAX package's examples (`examples/`) give
+#: on a CPU: exit status and values, held to 1e-6 relative or 1e-8
+#: absolute (the current manager to 1e-3, the tolerance of its own test,
+#: tests/examples/test_current_manager.py). For the flywheels the values
+#: are x_N and Σ(10 − x)²; for the multi-tag pose x, y and θ; for the
+#: shooters the initial velocity, pitch and yaw. G-FOLD at N=25 is
+#: infeasible: the JAX package ends LOCALLY_INFEASIBLE, and the port ends
+#: LOCALLY_INFEASIBLE or FEASIBILITY_RESTORATION_FAILED as its sums round
+#: (tests/test_torch_examples_gfold.py); its fuel cost is inf.
+EXAMPLES_JAX = {
+    "current_manager": ("SUCCESS", [24.999993743536887, 9.999843589172132, 4.9993743616880675,
+                                    0.00023539378046597118, 29.960317461578096, 9.007936509192517,
+                                    1.0317459596198384, 3.708624889530717e-08]),
+    "flywheel_ocp": ("SUCCESS", [9.999999988322378, 794.340721534629]),
+    "flywheel_direct_transcription": ("SUCCESS", [9.99999998737953, 794.3407215346294]),
+    "constrained_multitag": ("SUCCESS", [0.0007749818980796211, 5.413759757799949e-13,
+                                         -2.703206537120687e-13]),
+    "frc_2022_shooter": ("SUCCESS", [8.110883865376167, 0.6512092807372257, 0.6815197090288613]),
+    "frc_2024_shooter": ("NONFINITE_INITIAL_GUESS",
+                         [14.999999999999998, 0.1375467297967536, 2.909860051922712]),
+    "g_fold": ("LOCALLY_INFEASIBLE", [math.inf]),
+}
+EXAMPLE_TOL = {"rtol": 1e-6, "atol": 1e-8}
+#: The flywheel OCP example's K1 and K2 shapes (stage width 4, N=100).
+EXAMPLE_OCP_SHAPES = {("factor", 4, 101, 4), ("solve", 1, 101, 4)}
+#: One point of each sweep of `sleipnir_tpu_torch.tools.scalability`.
+SWEEP_POINTS = {"flywheel": 1000, "cart_pole": 100}
 #: Peak rates of one H100 SXM at 700 W (NVIDIA's data sheet): HBM3 bytes
 #: per second, and float64 (tensor-core) and float32 operations per second.
 HBM_BYTES_PER_S = 3.35e12
@@ -520,6 +564,125 @@ class DtypeTally:
 
     def __exit__(self, *exc) -> None:
         self._graphed.__call__ = self._call
+
+
+def examples_phase() -> dict:
+    """Phase 15: every example of `sleipnir_tpu_torch/examples` at its
+    published size on the card, held to the JAX package's results; the
+    flywheel OCP's K1/K2 launches by shape, with the counts at 0 just
+    before it; then one point of each scalability sweep. Returns the OCP
+    example's launches by shape."""
+    from sleipnir_tpu_torch import ExitStatus
+    from sleipnir_tpu_torch.examples import (
+        constrained_multitag,
+        current_manager,
+        flywheel_direct_transcription,
+        flywheel_ocp,
+        frc_2022_shooter,
+        frc_2024_shooter,
+        g_fold,
+    )
+    from sleipnir_tpu_torch.ops import cuda_banded
+    from sleipnir_tpu_torch.optimization.problem import Problem
+    from sleipnir_tpu_torch.tools import scalability
+
+    solved = []  # (Problem, status, iterations) of every solve an example runs
+    solve = Problem.solve
+
+    def recording(self, *args, **kwargs):
+        status = solve(self, *args, **kwargs)
+        solved.append((self, status, self.last_solve_stats.iterations))
+        return status
+
+    def backends():
+        names = {type(entry[-1]).__name__ for p, _, _ in solved for key, entry in
+                 p._solver_cache.items() if key[0] in ("ipm", "sqp", "newton")}
+        return "/".join(sorted(names)) or "none (no solve ran)"
+
+    def flywheel_values(X):
+        Xv = X.value()
+        return [float(Xv[0, -1]), float(((10.0 - Xv) ** 2).sum())]
+
+    def manager():
+        # `calculate` returns the currents only: the status is the first
+        # of its two solves that did not succeed, else SUCCESS.
+        m = current_manager.CurrentManager([1.0, 5.0, 10.0, 5.0], 40.0)
+        values = m.calculate([25.0, 10.0, 5.0, 0.0]) + m.calculate([30.0, 10.0, 5.0, 0.0])
+        status = next((st for _, st, _ in solved if st != ExitStatus.SUCCESS), ExitStatus.SUCCESS)
+        return status, values
+
+    def fly_ocp():
+        status, ocp = flywheel_ocp.main(verbose=False)
+        return status, flywheel_values(ocp.X())
+
+    def fly_dt():
+        status, X, _U = flywheel_direct_transcription.main(verbose=False)
+        return status, flywheel_values(X)
+
+    def values_of(main):
+        def run():
+            status, *values = main(verbose=False)
+            return status, [float(v) for v in values]
+        return run
+
+    def gfold():
+        status, cost = g_fold.main(N=25, verbose=False)
+        return status, [cost]
+
+    runs = {
+        "current_manager": manager, "flywheel_ocp": fly_ocp,
+        "flywheel_direct_transcription": fly_dt,
+        "constrained_multitag": values_of(constrained_multitag.main),
+        "frc_2022_shooter": values_of(frc_2022_shooter.main),
+        "frc_2024_shooter": values_of(frc_2024_shooter.main), "g_fold": gfold,
+    }
+    ocp_shapes: dict = {}
+    Problem.solve = recording
+    try:
+        for name, run in runs.items():
+            expected_status, expected = EXAMPLES_JAX[name]
+            solved.clear()
+            cuda_banded.reset_counters()
+            reset_graph_counts()
+            t0 = time.monotonic()
+            status, values = run()
+            torch.cuda.synchronize()
+            seconds = time.monotonic() - t0
+            shapes = dict(cuda_banded.LAUNCHES_BY_SHAPE)
+            iterations = [n for _, _, n in solved]
+            print(f"example {name}: {status} (JAX {expected_status}), values {values} (JAX "
+                  f"{expected}), {seconds:.2f} s, iterations {iterations}, backend "
+                  f"{backends()}, kernel launches {shapes}, {graph_note()}", flush=True)
+            if name == "g_fold":
+                infeasible = {ExitStatus.LOCALLY_INFEASIBLE,
+                              ExitStatus.FEASIBILITY_RESTORATION_FAILED}
+                if status not in infeasible or values != expected:
+                    fail("examples", f"g_fold ended {status} with cost {values}; the JAX "
+                         f"package ends {expected_status} with cost inf")
+                continue
+            if status != ExitStatus[expected_status]:
+                fail("examples", f"{name} ended {status}; the JAX package's ends "
+                     f"{expected_status}")
+            tol = {"rtol": 0.0, "atol": 1e-3} if name == "current_manager" else EXAMPLE_TOL
+            if not np.allclose(values, expected, **tol):
+                fail("examples", f"{name}: {values} differ from the JAX package's {expected} "
+                     f"beyond {tol}")
+            if name == "flywheel_ocp":
+                ocp_shapes = shapes
+                missing = [s for s in EXAMPLE_OCP_SHAPES if not shapes.get(s)]
+                if missing:
+                    fail("examples", f"flywheel_ocp launched no kernel at {missing}: {shapes}")
+    finally:
+        Problem.solve = solve
+
+    out_dir = pathlib.Path(__file__).resolve().parent / "build"
+    for name, n in SWEEP_POINTS.items():
+        out = out_dir / f"{name}-scalability-smoke.csv"
+        [sample] = scalability.main([name, "--samples", str(n), "--out", str(out)])
+        rows = scalability.read_csv(out)
+        if sample.status != ExitStatus.SUCCESS or [r[0] for r in rows] != [n]:
+            fail("examples", f"scalability {name} N={n}: {sample.status}, file rows {rows}")
+    return ocp_shapes
 
 
 def main() -> None:
@@ -1495,8 +1658,8 @@ def main() -> None:
         if p._last_state.x.dtype != torch.float32:
             fail("float32", f"{solver}: the iterate is {p._last_state.x.dtype}")
 
-    # The flywheel at N=60 (SUCCESS), 1000 and 5000 (restoration fails,
-    # its banded system factored by float32 K1 too).
+    # The flywheel at N=60 (SUCCESS) and 1000 (restoration fails, its
+    # banded system factored by float32 K1 too).
     f32_iterations = {}
     for n_fly, (expected, jax_iters) in F32_FLYWHEEL_JAX.items():
         p, FX32, _FU32 = flywheel.flywheel_problem(N=n_fly, total_time=TOTAL_TIME)
@@ -1572,9 +1735,9 @@ def main() -> None:
         fail("float32", f"re-solve differs from a fresh float32 problem by {re_diff}")
 
     # K1/K2 in float32 against the float32 twin at every float32 shape the
-    # paths launched, restoration's width, (2, 40, 37) and the width edges;
+    # paths launched, the N=5000 path's shapes, (2, 40, 37) and the width edges;
     # each path shape timed beside the float64 kernels at the same shape.
-    shape_set = sorted({(B, K, w) for (_k, B, K, w) in f32_shapes})
+    shape_set = sorted({(B, K, w) for (_k, B, K, w) in f32_shapes} | set(F32_LONG_SHAPES))
     cases32 = [(B, K, w, True) for B, K, w in shape_set] + [(2, 40, 37, False)]
     cases32 += [(B, 9, w, False) for w in EDGE_WIDTHS for B in (1, 2)]
     f32_kernels = {}
@@ -1642,6 +1805,11 @@ def main() -> None:
     torch.cuda.empty_cache()
     print(f"float32 phase: {time.monotonic() - t_phase:.1f} s", flush=True)
 
+    # -- 15. the examples ---------------------------------------------------
+    t_phase = time.monotonic()
+    ocp_shapes = examples_phase()
+    print(f"examples phase: {time.monotonic() - t_phase:.1f} s", flush=True)
+
     # -- results ----------------------------------------------------------
     path_shapes = (collections.Counter(fly_shapes) + collections.Counter(fr_shapes)
                    + collections.Counter(sqp_shapes) + collections.Counter(mt_shapes)
@@ -1700,6 +1868,9 @@ def main() -> None:
             # The batched solve's shape (phase 12): its launches there.
             "lanes": {**lane_kernels["factor"],
                       "launches": lanes_shapes.get(("factor", *LANE_FACTOR_SHAPE), 0)},
+            # The flywheel OCP example's launches (phase 15), by shape.
+            "examples": {f"flywheel_ocp B={B},K={K},w={w}": n
+                         for (k, B, K, w), n in ocp_shapes.items() if k == "factor"},
         },
         {
             "name": "banded_solve",
@@ -1715,6 +1886,8 @@ def main() -> None:
             "library_ms": None,
             "lanes": {**lane_kernels["solve"],
                       "launches": lanes_shapes.get(("solve", *LANE_SOLVE_SHAPE), 0)},
+            "examples": {f"flywheel_ocp B={B},K={K},w={w}": n
+                         for (k, B, K, w), n in ocp_shapes.items() if k == "solve"},
         },
         long_entry("factor", "sleipnir_tpu/ops/pallas_banded.py:633"),
         long_entry("solve", "sleipnir_tpu/ops/pallas_banded.py:680"),

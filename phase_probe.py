@@ -59,6 +59,17 @@ launch); `eval_derivs` and f, c_e, c_i run under `vmap` over lanes.
 `--dtype float32` solves a serial problem in float32 (`Options.dtype`),
 to `--tolerance` (1e-2 by default there, the JAX package's float32 test
 tolerance; 1e-8 in float64).
+
+`--kkt-at-floor` (serial interior-point problems) reads μ before every
+parent step and prints the unscaled KKT error's terms (stationarity over
+s_d, complementarity over s_c, ‖cₑ‖∞, ‖cᵢ − s‖∞; the reference's
+kkt_error.hpp algebra, `util/kkt_error.py`) at the first step of the
+smallest μ the solve reaches (its floor: the barrier stops falling there),
+at the step of least KKT error at that μ, and at the solve's end. It
+costs a few host syncs per iteration.
+`--max-iterations` caps the solve:
+
+    python3 phase_probe.py --problem cart_pole --N 5000 --kkt-at-floor
 """
 
 from __future__ import annotations
@@ -122,7 +133,7 @@ class Probe:
         self.depth = 0
         self.seconds: collections.Counter = collections.Counter()
         self.calls: collections.Counter = collections.Counter()
-        self.restorations: list = []  # (seconds, iterations) per entry
+        self.restorations: list = []  # (seconds, iterations, entry iteration) per entry
         self.profiler = torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]
             + ([torch.profiler.ProfilerActivity.CUDA] if device.type == "cuda" else [])
@@ -184,7 +195,8 @@ class Probe:
             t0 = time.perf_counter()
             out = inner(parent, parent_state, *args, **kwargs)
             self.sync()
-            self.restorations.append((time.perf_counter() - t0, out[-1] - parent_state.iterations))
+            self.restorations.append((time.perf_counter() - t0, out[-1] - parent_state.iterations,
+                                      parent_state.iterations))
             return out
 
         problem_module.restore = counted
@@ -335,6 +347,43 @@ def restoration(probe: Probe, device: torch.device, n: int) -> None:
     report_timed(probe, iterations)
 
 
+def kkt_terms(state, backend) -> dict:
+    """The unscaled ∞-norm KKT error's terms at an interior-point state
+    (`util/kkt_error.unscaled_kkt_error_ipm_products`, term by term)."""
+    sc = state.scaling
+    inv_d_f = 1.0 / sc.f
+    grad = (state.g - backend.AeT(state.derivs, state.y)
+            - backend.AiT(state.derivs, state.z)) * inv_d_f
+    y_u = sc.c_e * state.y * inv_d_f
+    z_u = sc.c_i * state.z * inv_d_f
+    s_u = state.s / sc.c_i
+    m = y_u.shape[0] + z_u.shape[0]
+    s_d = max(float((y_u.abs().sum() + z_u.abs().sum()) / max(m, 1)), 100.0) / 100.0
+    s_c = max(float(z_u.abs().sum() / max(z_u.shape[0], 1)), 100.0) / 100.0
+
+    def inf(v):
+        return float(v.abs().max()) if v.shape[0] else 0.0
+
+    return {
+        "stationarity/s_d": inf(grad) / s_d,
+        "raw stationarity": inf(grad),
+        "|y|": inf(y_u),
+        "complementarity/s_c": inf(s_u * z_u - state.mu * inv_d_f) / s_c,
+        "|c_e|": inf(state.c_e / sc.c_e),
+        "|c_i - s|": inf(state.c_i / sc.c_i - s_u),
+        "mu": float(state.mu * inv_d_f),
+    }
+
+
+#: The terms whose largest is the unscaled KKT error.
+KKT_ERROR_TERMS = ("stationarity/s_d", "complementarity/s_c", "|c_e|", "|c_i - s|")
+
+
+def print_kkt(label: str, iteration: int, terms: dict) -> None:
+    print(f"KKT terms {label} (iteration {iteration}, unscaled): "
+          + ", ".join(f"{k} {v:.6g}" for k, v in terms.items()), flush=True)
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--device", default="cuda")
@@ -347,6 +396,8 @@ def main() -> None:
     parser.add_argument("--profiled", type=int, default=10)
     parser.add_argument("--dtype", choices=["float64", "float32"], default="float64")
     parser.add_argument("--tolerance", type=float, default=None)
+    parser.add_argument("--max-iterations", type=int, default=Options.max_iterations)
+    parser.add_argument("--kkt-at-floor", action="store_true")
     args = parser.parse_args()
     if args.tolerance is None:
         args.tolerance = 1e-2 if args.dtype == "float32" else 1e-8
@@ -371,10 +422,26 @@ def main() -> None:
     probe.wrap_graphed()
     cuda_graph.reset_counters()
     run_solver = problem_module.run_solver
+    # The first state at the smallest μ so far, and the state of least
+    # unscaled KKT error (the largest of its terms) at that μ.
+    floor: dict = {"mu": float("inf")}
+
+    def at_floor(st) -> None:
+        mu = float(st.mu)
+        if mu > floor["mu"]:
+            return
+        terms = kkt_terms(st, floor["backend"])
+        error = max(terms[k] for k in KKT_ERROR_TERMS)
+        if mu < floor["mu"]:
+            floor.update(mu=mu, iteration=st.iterations, terms=terms, best=None)
+        if floor["best"] is None or error < floor["best"][0]:
+            floor["best"] = (error, st.iterations, terms)
 
     def run_solver_with_hook(state, step, options, **kwargs):
         def hooked_step(st):
             probe.on_iteration(st.iterations)
+            if args.kkt_at_floor:
+                at_floor(st)
             return step(st)
 
         return run_solver(state, hooked_step, options, **kwargs)
@@ -388,21 +455,31 @@ def main() -> None:
         batched(probe, device, args.N, args.lanes)
         return
     problem, _X, _U = PROBLEMS[args.problem](N=args.N, total_time=5.0)
+    options = Options(device=args.device, dtype=args.dtype, tolerance=args.tolerance,
+                      max_iterations=args.max_iterations)
+    if args.kkt_at_floor:
+        floor["backend"] = problem.prepare_ipm(options)[1][-1]
     t0 = time.perf_counter()
-    status = problem.solve(device=args.device, dtype=args.dtype, tolerance=args.tolerance)
+    status = problem.solve(options)
     probe.sync()
     wall = time.perf_counter() - t0
     stats = problem.last_solve_stats
     probe.finish(stats.iterations)
-    restore_s = sum(s for s, _ in probe.restorations)
-    restore_it = sum(i for _, i in probe.restorations)
+    restore_s = sum(s for s, _, _ in probe.restorations)
+    restore_it = sum(i for _, i, _ in probe.restorations)
     print(f"{args.problem} N={args.N} on {args.device} in {args.dtype} to {args.tolerance:g}: "
           f"{status}, {stats.iterations} iterations, "
           f"solve {wall:.3f} s ({wall * 1e3 / max(stats.iterations, 1):.1f} ms/iteration), "
           f"host syncs/iteration {stats.host_syncs_per_iteration:.2f}", flush=True)
     print(f"restoration: {len(probe.restorations)} entries, {restore_it} iterations, "
-          f"{restore_s:.3f} s", flush=True)
+          f"{restore_s:.3f} s" + (f", the first at iteration {probe.restorations[0][2]}"
+                                  if probe.restorations else ""), flush=True)
     report_graphs()
+    if args.kkt_at_floor:
+        print_kkt("at the mu floor", floor["iteration"], floor["terms"])
+        print_kkt(f"of the least KKT error {floor['best'][0]:.6g} at the mu floor",
+                  floor["best"][1], floor["best"][2])
+        print_kkt("at the end", stats.iterations, kkt_terms(problem._last_state, floor["backend"]))
 
     report_timed(probe, stats.iterations)
     report_profiled(probe)

@@ -8,7 +8,8 @@ autodiff/gradient.hpp:25, jacobian.hpp:31, hessian.hpp:35), computed by
 the reference's set_value-then-revalue workflow; variables other than
 `wrt` enter the compiled function as runtime parameters. Evaluation runs
 on the card unless the caller passes `device="cpu"`; a CUDA device that
-is absent raises.
+is absent raises at the first `.value()`. `.get()` is symbolic and
+works without one.
 """
 
 from __future__ import annotations
@@ -82,19 +83,27 @@ def _symbolic(expr, wrt_ids, kind):
 
 
 class _Driver:
-    """The compiled expression, its device, and the evaluation point."""
+    """The compiled expression, its device, and the evaluation point. The
+    device is resolved, and the constants prepared on it, at the first
+    `.value()`: `.get()` is symbolic and needs no device, as in the JAX
+    package, whose drivers compile lazily."""
 
     def __init__(self, expr: Expr, wrt, device: str) -> None:
-        # Imported here: the optimization layer imports this package.
-        from sleipnir_tpu_torch.optimization.problem import resolve_device  # noqa: PLC0415
-
-        self._device = resolve_device(device)
+        self._device_name = device
+        self._device = None
         self._wrt_ids = _wrt_ids(wrt)
         self._expr = expr
         self._compiled = CompiledEval([expr], self._wrt_ids)
-        self._compiled.prepare(self._device)
 
     def _point(self):
+        if self._device is None:
+            # Imported here: the optimization layer imports this package.
+            from sleipnir_tpu_torch.optimization.problem import resolve_device  # noqa: PLC0415
+
+            device = resolve_device(self._device_name)
+            self._compiled.prepare(device)
+            self._device = device
+
         def on_device(a):
             return torch.as_tensor(a, dtype=torch.float64, device=self._device)
 

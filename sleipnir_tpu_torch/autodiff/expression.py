@@ -190,9 +190,29 @@ def _setblock(static, base, value):
 
 
 def _solve(a, b):
+    """Solve a x = b by Gaussian elimination with partial pivoting, the
+    JAX package's `_ge_solve` (reference variable_matrix.hpp:1516
+    solve()), at every size. Unlike `torch.linalg.solve`, whose
+    singularity check reads the device, it is a fixed sequence of tensor
+    operations and so records into a CUDA graph."""
+    n = a.shape[0]
     if b.dim() == 1:
-        b = b.reshape(-1, 1)
-    return torch.linalg.solve(a, b)
+        b = b.reshape(n, 1)
+    A = torch.cat([a, b.to(a.dtype)], dim=1)
+    rows = torch.arange(n, device=A.device)
+    for k in range(n):
+        piv = torch.argmax(torch.abs(A[k:, k])) + k
+        A = A[torch.where(rows == k, piv, torch.where(rows == piv, k, rows))]
+        if k + 1 < n:
+            factor = A[k + 1 :, k] / A[k, k]
+            A = torch.cat([A[: k + 1], A[k + 1 :] - factor[:, None] * A[k][None, :]])
+    x = []
+    for k in reversed(range(n)):
+        rhs = A[k, n:]
+        if x:
+            rhs = rhs - A[k, k + 1 : n] @ torch.stack(x[::-1])
+        x.append(rhs / A[k, k])
+    return torch.stack(x[::-1])
 
 
 def _cbrt(a):

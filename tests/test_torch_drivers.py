@@ -106,10 +106,27 @@ def test_get_reused_inside_a_cost():
 
 
 def test_default_device_is_the_card():
+    """The default device is the card: without one, `.value()` raises
+    (the device is resolved there, not in the constructor)."""
     x = tslp.Variable()
     x.set_value(2.0)
+    gradient = tslp.Gradient(x * x, x)
     if torch.cuda.is_available():
-        assert tslp.Gradient(x * x, x).value()[0, 0] == 4.0
+        assert gradient.value()[0, 0] == 4.0
     else:
         with pytest.raises(RuntimeError, match="asks for CUDA"):
-            tslp.Gradient(x * x, x)
+            gradient.value()
+
+
+@pytest.mark.parametrize("driver", ["Gradient", "Jacobian", "Hessian"])
+def test_get_needs_no_device(driver):
+    """`.get()` is symbolic: at the default device it builds the derivative
+    without a card, as the JAX package's drivers do, and the result
+    evaluates like the JAX package's."""
+    (jf, jx), (tf, tx) = _pair(4, _tall if driver == "Jacobian" else _scalar)
+    port = getattr(tslp, driver)(tf, tx).get()
+    ref = getattr(jslp, driver)(jf, jx).get()
+    np.testing.assert_allclose(port.value(), ref.value(), rtol=1e-12, atol=1e-12)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="asks for CUDA"):
+            getattr(tslp, driver)(tf, tx).value()

@@ -23,6 +23,7 @@ from torch.utils import _pytree as pytree
 from torch.utils._python_dispatch import TorchDispatchMode
 
 import sleipnir_tpu_torch as tslp
+from sleipnir_tpu_torch.examples import constrained_multitag
 from sleipnir_tpu_torch.models import cart_pole, differential_drive, double_integrator, flywheel
 from sleipnir_tpu_torch.optimization.solver.funcs import ScalingArrays
 from sleipnir_tpu_torch.optimization.solver.util import cuda_graph
@@ -33,11 +34,13 @@ torch.set_num_threads(1)
 
 #: What a CUDA graph cannot hold: `.item()` and `bool(tensor)` (a host
 #: read), `nonzero` and boolean-mask selection (a data-dependent shape),
-#: and `torch.tensor`/`torch.as_tensor` of host data (a host-to-device
-#: copy whose value the replay would keep).
+#: `torch.tensor`/`torch.as_tensor` of host data (a host-to-device copy
+#: whose value the replay would keep), and the error check of a linalg
+#: library call (`torch.linalg.solve`), which reads its info on the card.
 TRAPPED = {
     "aten::_local_scalar_dense", "aten::nonzero", "aten::masked_select",
     "aten::is_nonzero", "aten::lift_fresh", "aten::lift_fresh_copy",
+    "aten::_linalg_check_errors",
 }
 
 
@@ -179,6 +182,9 @@ CASES = {
     ),
     "README example (dense SQP)": (
         lambda: _solve(_small(_readme, [1.0, 2.0])), {"evaluate", "trial_at", "refresh"},
+    ),
+    "multi-tag pose example (Newton through the DSL's solve)": (
+        lambda: constrained_multitag.main(verbose=False, device="cpu"), {"evaluate", "cost_at"},
     ),
     # The rarer branches, on small dense problems that reach them.
     "IPM second-order corrections, α ladder, KKT fallback": (
