@@ -101,6 +101,28 @@ just before each path (phases 4-12) and read just after it.
      `sleipnir_tpu_torch.tools.scalability` (flywheel N=1000, cart-pole
      N=100), which must reach SUCCESS and write the reference schema.
 
+ 16. the partitioned factor and the time axis: the partitioned factor and
+     solve on K1/K2 (`banded_factor_part`, `banded_solve_part`) against
+     the partitioned twin on the same tensors and against K1/K2's chain,
+     inertia exactly and solutions to 1e-10, at (4, 5001, 4),
+     (4, 5001, 13), (4, 2001, 37) and (1, 256, 13), with K2 over the
+     condensation columns (r = 2w), each timed beside the chain; the
+     crossover of the two at K = 101…5001 and w = 4, 13, 37 (B=4); then
+     the JAX package's multi-device dry run (__graft_entry__.py:65-252)
+     on a mesh of every card, or of 4 shards of the one card: cart-pole
+     N=24 from one guess per shard by `solve_ipm_batched(mesh=)`, one
+     thread per shard, every lane SUCCESS; the flywheel at N = 8·shards
+     through `set_time_axis_mesh`, SUCCESS and within 1e-6 of the
+     unsharded solve; and the sharded factor and solve at K=2048, w=13
+     against the unsharded one to 1e-8 with equal inertia, timed per
+     shard count.
+
+From K = 256 stages the banded backend takes the partitioned form on the
+card, so the long paths of phases 6, 7, 8, 10, 11 (N=1000 and
+collocation) and 14 (N=1000) are checked for it: the partitioned calls at
+the path's (B, K, w), K1 at the parts' interiors (B·P, L-1, w), and no
+chain of K stages. Phase 3 still holds K1/K2's chain at the long shapes.
+
 Phases 4-12 print each path's iterations and time per iteration beside
 the figures from before the problem evaluations ran as CUDA graphs,
 and the graphs' captures, replays and capture seconds and the peak device
@@ -416,6 +438,34 @@ def long_launches(shape_counts, kind):
     }
 
 
+def path_counts():
+    """What a path launched since the counters were reset: K1/K2 launches
+    by shape, the partitioned factor's and solve's calls by the outer
+    system's shape, and the launches those calls made."""
+    from sleipnir_tpu_torch.ops import cuda_banded
+
+    return (dict(cuda_banded.LAUNCHES_BY_SHAPE), dict(cuda_banded.PARTITIONED_BY_SHAPE),
+            dict(cuda_banded.PARTITIONED_LAUNCHES))
+
+
+def check_partitioned(phase, launches, part, factor_key, solve_keys):
+    """A path at K ≥ 256 stages on the card: its factor at factor_key =
+    (kind, B, K, w) and its solves at solve_keys took the partitioned
+    form, K1 ran the parts' interiors at (B·P, L-1, w), and no chain of K
+    stages was launched."""
+    from sleipnir_tpu_torch.ops.block_tridiag import choose_partitions
+
+    kind, B, K, w = factor_key
+    P, L = choose_partitions(K)
+    for key in (factor_key, *solve_keys):
+        if not part.get(key):
+            fail(phase, f"no partitioned call at {key}: {part}")
+    if not launches.get((kind, B * P, L - 1, w)):
+        fail(phase, f"no K1 launch at the interiors' shape {(kind, B * P, L - 1, w)}: {launches}")
+    if any(k == K for _kind, _b, k, _w in launches):
+        fail(phase, f"a chain of {K} stages was launched: {launches}")
+
+
 _MEMORY_AT_RESET = [0]
 
 
@@ -683,6 +733,272 @@ def examples_phase() -> dict:
         if sample.status != ExitStatus.SUCCESS or [r[0] for r in rows] != [n]:
             fail("examples", f"scalability {name} N={n}: {sample.status}, file rows {rows}")
     return ocp_shapes
+
+
+#: Phase 16: the partitioned factor and solve on K1/K2 against the
+#: partitioned twin on the same tensors and against K1/K2's chain, at the
+#: long paths' shapes (B, K, w, system): the flywheel at N=5000 (w=4),
+#: cart-pole at N=5000 (w=13), its restoration system at N=2000 (w=37,
+#: well-conditioned stages, as in phase 3) and the threshold, K=256.
+PART_CASES = [(4, 5001, 4, "random"), (4, 5001, 13, "random"),
+              (4, 2001, 37, "conditioned"), (1, 256, 13, "random")]
+#: The crossover grid: K1's chain against the partitioned factor at B=4,
+#: and the solves at B=1, as the paths call them.
+CROSSOVER_K = (101, 256, 512, 1001, 2001, 5001)
+CROSSOVER_W = (4, 13, 37)
+#: The multi-device dry run of the JAX package (__graft_entry__.py:65-252):
+#: its mesh is every card when there are several, else this many shards
+#: of the one card; the batch is cart-pole at N=24 with one guess per
+#: shard, the time axis the flywheel at N = 8 · shards, and the sharded
+#: factor and solve a K=2048, w=13 system.
+DRYRUN_SHARDS = 4
+DRYRUN_LANES_N = 24
+SHARDED_K, SHARDED_W = 2048, 13
+
+
+def mesh_ms(fn, devices, reps: int = 5) -> float:
+    """Host time of one call (ms, mean of `reps` after one warm call) with
+    every device of the mesh synchronized around it."""
+    def sync():
+        for d in set(devices):
+            torch.cuda.synchronize(d)
+
+    fn()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    sync()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def partitioned_phase() -> dict:
+    """Phase 16: (a) the partitioned factor on the card, (b) the crossover
+    against K1's chain, (c) the JAX package's multi-device dry run on the
+    port's meshes. Returns {"shapes", "crossover", "time_axis"}."""
+    return {"shapes": partitioned_kernels(), "crossover": crossover(), "time_axis": dry_run()}
+
+
+_SYSTEMS = {"random": lambda rng, B, K, w: random_system(rng, B, K, w, 0),
+            "conditioned": conditioned_system}
+
+
+def _on_card(*arrays):
+    return (torch.tensor(a, dtype=torch.float64, device="cuda") for a in arrays)
+
+
+def partitioned_kernels() -> dict:
+    """Phase 16 (a): the partitioned factor and solve on K1/K2 against the
+    partitioned twin and K1/K2's chain at PART_CASES; entries by (B, K, w)."""
+    from sleipnir_tpu_torch.ops import block_tridiag as plain
+    from sleipnir_tpu_torch.ops import cuda_banded
+    from sleipnir_tpu_torch.optimization.solver.kkt_backend import take
+    from sleipnir_tpu_torch.optimization.solver.kkt_banded import EPS_INERTIA
+
+    dev = torch.device("cuda")
+    systems, on_card = _SYSTEMS, _on_card
+    shapes = {}
+    for B, K, w, system in PART_CASES:
+        Dg, Eg, bg = on_card(*systems[system](np.random.default_rng(B * K + w + 16), B, K, w))
+        P, L = plain.choose_partitions(K)
+        cuda_banded.reset_counters()
+        fk = cuda_banded.banded_factor_part(Dg, Eg)
+        xk = cuda_banded.banded_solve_part(fk, bg)
+        torch.cuda.synchronize()
+        launches = {",".join(map(str, k)): n for k, n in cuda_banded.LAUNCHES_BY_SHAPE.items()}
+        fp = plain.block_tridiag_factor_part(Dg, Eg)
+        xp = plain.block_tridiag_solve_part(fp, bg)
+        xf = plain.block_tridiag_solve_part(fk, bg)  # the kernels' factor alone
+        xs = cuda_banded.banded_solve_part(fp, bg)  # the kernels' solve alone
+        fc = cuda_banded.banded_factor(Dg, Eg)
+        xc = cuda_banded.banded_solve(fc, bg)
+        torch.cuda.synchronize()
+        inertia = {name: [t.tolist() for t in counts] for name, counts in (
+            ("kernels", plain.part_inertia(fk, EPS_INERTIA, K)),
+            ("twin", plain.part_inertia(fp, EPS_INERTIA, K)),
+            ("chain", plain.block_tridiag_inertia(fc, EPS_INERTIA)))}
+        f1, fc1, b1 = take(fk, 0), take(fc, 0), bg[:1].contiguous()
+        # K2 over the condensation columns: (B·P, L-1, w) with r = 2w.
+        interior = plain.BlockTridiagFactor(*(t.reshape(B * P, *t.shape[2:]) for t in fk.interior))
+        cols = torch.randn(B * P, L - 1, w, 2 * w, dtype=torch.float64, device=dev)
+        cols_x = cuda_banded.banded_solve(interior, cols)
+        cols_rel = rel_diff(cols_x, plain.block_tridiag_solve(interior, cols))
+        entry = {
+            "system": system, "P": P, "L": L,
+            "rel_err": rel_diff(xk, xp), "factor_rel_err": rel_diff(xf, xp),
+            "solve_rel_err": rel_diff(xs, xp), "chain_rel_err": rel_diff(xk, xc),
+            "factor_max_abs_err": (xf - xp).abs().max().item(),
+            "solve_max_abs_err": (xs - xp).abs().max().item(),
+            "cols_rel_err": cols_rel,
+            "inertia": inertia["kernels"],
+            "inertia_equal": inertia["kernels"] == inertia["twin"] == inertia["chain"],
+            "launches": launches,
+            "factor_ms": cuda_ms(lambda: cuda_banded.banded_factor_part(Dg, Eg), 10),
+            "factor_chain_ms": cuda_ms(lambda: cuda_banded.banded_factor(Dg, Eg), 2),
+            "factor_plain_ms": cuda_ms(lambda: plain.block_tridiag_factor_part(Dg, Eg), 1),
+            "solve_ms": cuda_ms(lambda: cuda_banded.banded_solve_part(f1, b1), 10),
+            "solve_chain_ms": cuda_ms(lambda: cuda_banded.banded_solve(fc1, b1), 3),
+            "solve_plain_ms": cuda_ms(lambda: plain.block_tridiag_solve_part(f1, b1), 1),
+            "cols_ms": cuda_ms(lambda: cuda_banded.banded_solve(interior, cols), 10),
+        }
+        entry["factor_bound_ms"], entry["factor_bound_by"] = factor_bound(B, K, w)
+        entry["solve_bound_ms"], entry["solve_bound_by"] = solve_bound(1, K, w)
+        entry["cols_bound_ms"], entry["cols_bound_by"] = solve_bound(B * P, L - 1, w, 2 * w)
+        shapes[B, K, w] = entry
+        print(f"partitioned (B={B}, K={K}, w={w}, {system}; P={P} parts of L={L}): inertia "
+              f"{inertia['kernels']} (twin {inertia['twin']}, chain {inertia['chain']}), rel diff "
+              f"from the twin {entry['rel_err']:.3e} (factor alone {entry['factor_rel_err']:.3e}, "
+              f"solve alone {entry['solve_rel_err']:.3e}), from the chain "
+              f"{entry['chain_rel_err']:.3e}; factor {entry['factor_ms']:.3f} ms (chain "
+              f"{entry['factor_chain_ms']:.3f}, twin {entry['factor_plain_ms']:.1f}, bound "
+              f"{entry['factor_bound_ms']:.5f}), solve {entry['solve_ms']:.3f} ms (chain "
+              f"{entry['solve_chain_ms']:.3f}, twin {entry['solve_plain_ms']:.1f}), K2 at "
+              f"({B * P}, {L - 1}, {w}, r={2 * w}) {entry['cols_ms']:.3f} ms (rel diff "
+              f"{cols_rel:.3e}, bound {entry['cols_bound_ms']:.5f}); launches {launches}",
+              flush=True)
+        if not entry["inertia_equal"]:
+            fail("partitioned", f"{(B, K, w)}: inertia {inertia}")
+        for key in ("rel_err", "factor_rel_err", "solve_rel_err", "chain_rel_err", "cols_rel_err"):
+            if not entry[key] <= REL_TOL:
+                fail("partitioned", f"{(B, K, w)}: {key} {entry[key]:.3e} > {REL_TOL}")
+        del Dg, Eg, bg, fk, xk, fp, xp, xf, xs, fc, xc, f1, fc1, b1, interior, cols, cols_x
+    torch.cuda.empty_cache()
+    return shapes
+
+
+def crossover() -> list:
+    """Phase 16 (b): K1's chain against the partitioned factor at B=4, K2's
+    chain against the partitioned solve at B=1, over CROSSOVER_K and
+    CROSSOVER_W."""
+    from sleipnir_tpu_torch.ops import block_tridiag as plain
+    from sleipnir_tpu_torch.ops import cuda_banded
+    from sleipnir_tpu_torch.optimization.solver.kkt_backend import take
+
+    systems, on_card = _SYSTEMS, _on_card
+    rows = []
+    for w in CROSSOVER_W:
+        for K in CROSSOVER_K:
+            system = "conditioned" if w == 37 else "random"
+            Dg, Eg, bg = on_card(*systems[system](np.random.default_rng(K + w), 4, K, w))
+            fc, fk = cuda_banded.banded_factor(Dg, Eg), cuda_banded.banded_factor_part(Dg, Eg)
+            fc1, f1, b1 = take(fc, 0), take(fk, 0), bg[:1].contiguous()
+            rel = rel_diff(cuda_banded.banded_solve_part(fk, bg), cuda_banded.banded_solve(fc, bg))
+            reps = 2 if K * w > 20000 else 10
+            row = {
+                "K": K, "w": w, "system": system,
+                "partitioned": K >= plain.PART_MIN_BLOCKS,
+                "chain_factor_ms": cuda_ms(lambda: cuda_banded.banded_factor(Dg, Eg), reps),
+                "part_factor_ms": cuda_ms(lambda: cuda_banded.banded_factor_part(Dg, Eg), 10),
+                "chain_solve_ms": cuda_ms(lambda: cuda_banded.banded_solve(fc1, b1), reps),
+                "part_solve_ms": cuda_ms(lambda: cuda_banded.banded_solve_part(f1, b1), 10),
+                "rel_diff": rel,
+            }
+            rows.append(row)
+            print(f"crossover (4, {K}, {w}): factor chain {row['chain_factor_ms']:.3f} ms, "
+                  f"partitioned {row['part_factor_ms']:.3f} ms; solve (B=1) chain "
+                  f"{row['chain_solve_ms']:.3f} ms, partitioned {row['part_solve_ms']:.3f} ms; "
+                  f"rel diff {rel:.3e}", flush=True)
+            del Dg, Eg, bg, fc, fk, fc1, f1, b1
+    torch.cuda.empty_cache()
+    return rows
+
+
+def dry_run() -> dict:
+    """Phase 16 (c): the JAX package's multi-device dry run
+    (__graft_entry__.py:65-252) on a mesh of every card, or of
+    DRYRUN_SHARDS shards of the one card."""
+    from sleipnir_tpu_torch import ExitStatus, Options
+    from sleipnir_tpu_torch.models import flywheel
+    from sleipnir_tpu_torch.models.cart_pole import cart_pole_problem
+    from sleipnir_tpu_torch.ops import block_tridiag as plain
+    from sleipnir_tpu_torch.ops import cuda_banded
+    from sleipnir_tpu_torch.optimization.solver.kkt_banded import EPS_INERTIA
+    from sleipnir_tpu_torch.parallel import Mesh, solve_ipm_batched
+    from sleipnir_tpu_torch.parallel import time_axis as ta
+
+    dev = torch.device("cuda")
+    cards = torch.cuda.device_count()
+    if cards > 1:
+        devices, case = [f"cuda:{i}" for i in range(cards)], f"every card ({cards})"
+    else:
+        devices, case = ["cuda:0"] * DRYRUN_SHARDS, f"{DRYRUN_SHARDS} shards of cuda:0"
+    n = len(devices)
+    print(f"time axis: torch.cuda.device_count() = {cards}; the mesh is {case}", flush=True)
+    dry = {"device_count": cards, "mesh": case}
+
+    problem, _X, _U = cart_pole_problem(N=DRYRUN_LANES_N, total_time=TOTAL_TIME)
+    rng = np.random.default_rng(0)
+    guesses = [0.01 * k * rng.standard_normal(problem._compile()["n"]) for k in range(n)]
+    cuda_banded.reset_counters()
+    t0 = time.monotonic()
+    statuses, costs, _xs, finals = solve_ipm_batched(
+        problem, guesses, Options(device="cuda"), mesh=Mesh.of(devices, "batch"))
+    for d in set(devices):
+        torch.cuda.synchronize(d)
+    batch_s = time.monotonic() - t0
+    iterations = [int(i) for f in finals for i in f.iterations.tolist()]
+    dry["batch"] = {"statuses": statuses.tolist(), "iterations": iterations, "seconds": batch_s}
+    print(f"time axis, batch over the mesh (cart-pole N={DRYRUN_LANES_N}, one guess per shard, "
+          f"one thread per shard): statuses {statuses.tolist()}, iterations {iterations}, costs "
+          f"{costs.tolist()}, {batch_s:.2f} s with the groups' captures, launches "
+          f"{dict(cuda_banded.LAUNCHES_BY_SHAPE)}", flush=True)
+    if statuses.tolist() != [int(ExitStatus.SUCCESS)] * n or not np.isfinite(costs).all():
+        fail("time axis", f"batch over the mesh: statuses {statuses.tolist()}, costs {costs}")
+
+    N_t = 8 * n
+    ref, RX, _RU = flywheel.flywheel_problem(N=N_t, total_time=TOTAL_TIME)
+    if ref.solve(device="cuda") != ExitStatus.SUCCESS:
+        fail("time axis", f"the unsharded flywheel N={N_t} failed")
+    sharded, SX, _SU = flywheel.flywheel_problem(N=N_t, total_time=TOTAL_TIME)
+    t_mesh = Mesh.of(devices, "t")
+    sharded.set_time_axis_mesh(t_mesh, "t")
+    cuda_banded.reset_counters()
+    status = sharded.solve(device="cuda")
+    [cached] = [v for k, v in sharded._solver_cache.items() if k[0] == "ipm"]
+    err = float(np.abs(SX.value() - RX.value()).max())
+    dry["flywheel"] = {"N": N_t, "status": str(status), "iterations":
+                       sharded.last_solve_stats.iterations, "x_err": err,
+                       "unsharded_iterations": ref.last_solve_stats.iterations}
+    print(f"time axis, flywheel N={N_t} through set_time_axis_mesh: {status}, "
+          f"{sharded.last_solve_stats.iterations} iterations (unsharded "
+          f"{ref.last_solve_stats.iterations}), |x - x_ref| = {err:.3e}, launches "
+          f"{dict(cuda_banded.LAUNCHES_BY_SHAPE)}", flush=True)
+    if status != ExitStatus.SUCCESS or cached[-1].mesh is not t_mesh or not err < 1e-6:
+        fail("time axis", f"flywheel through the mesh: {status}, mesh taken "
+             f"{cached[-1].mesh is t_mesh}, |x - x_ref| = {err}")
+
+    # __graft_entry__.py's system: D + Dᵀ + 10I, E = randn, seed 0.
+    rng = np.random.default_rng(0)
+    D = rng.standard_normal((SHARDED_K, SHARDED_W, SHARDED_W))
+    D = D + np.swapaxes(D, 1, 2) + 10 * np.eye(SHARDED_W)
+    E = rng.standard_normal((SHARDED_K - 1, SHARDED_W, SHARDED_W))
+    rhs = rng.standard_normal((SHARDED_K, SHARDED_W))
+    Dg, Eg, bg = (t[None] for t in _on_card(D, E, rhs))
+    f0 = cuda_banded.banded_factor_part(Dg, Eg)
+    x0 = cuda_banded.banded_solve_part(f0, bg)
+    inertia0 = [t.tolist() for t in plain.part_inertia(f0, EPS_INERTIA, SHARDED_K)]
+    table = [{"shards": 0, "ms": mesh_ms(lambda: cuda_banded.banded_solve_part(
+        cuda_banded.banded_factor_part(Dg, Eg), bg), ["cuda:0"]), "rel_err": 0.0}]
+    for nd in sorted({1, 2, max(n // 2, 1), n}):
+        mesh = Mesh.of(devices[:nd], "t")
+        Dp, Ep, bp, K0 = ta.pad_to_devices(Dg, Eg, bg, nd)
+        fac = ta.sharded_factor(mesh, "t", Dp, Ep)
+        x = ta.sharded_solve(mesh, "t", fac, bp)[:, :K0].to(dev)
+        inertia = [t.tolist() for t in ta.sharded_inertia(fac, EPS_INERTIA, K0)]
+        row = {"shards": nd, "devices": sorted({str(d) for d in mesh.devices}),
+               "rel_err": rel_diff(x, x0), "inertia_equal": inertia == inertia0,
+               "ms": mesh_ms(lambda: ta.sharded_block_tridiag_solve(mesh, "t", Dp, Ep, bp),
+                             mesh.devices)}
+        table.append(row)
+        if not (row["rel_err"] <= 1e-8 and row["inertia_equal"]):
+            fail("time axis", f"sharded factor+solve over {nd} shards: rel diff "
+                 f"{row['rel_err']:.3e}, inertia {inertia} (unsharded {inertia0})")
+    dry["sharded_solve"] = {"K": SHARDED_K, "w": SHARDED_W, "table": table}
+    print(f"time axis, sharded factor+solve K={SHARDED_K}, w={SHARDED_W} (shards 0: the "
+          f"unsharded partitioned form): " + "; ".join(
+              f"{r['shards']} shards {r['ms']:.3f} ms (rel diff {r['rel_err']:.2e})"
+              for r in table), flush=True)
+    return dry
 
 
 def main() -> None:
@@ -1075,7 +1391,7 @@ def main() -> None:
     status = fly.solve(device="cuda")
     torch.cuda.synchronize()
     fly_s = time.monotonic() - t0
-    fly_shapes = dict(cuda_banded.LAUNCHES_BY_SHAPE)
+    fly_shapes, fly_part, fly_part_launches = path_counts()
     fly_iters = fly.last_solve_stats.iterations
     path_iterations["flywheel"] = fly_iters
     if status != ExitStatus.SUCCESS:
@@ -1084,13 +1400,13 @@ def main() -> None:
     print(f"flywheel N={FLYWHEEL_N}: {status}, {fly_iters} iterations (the JAX package: "
           f"18 on a TPU, docs/scalability_results.md:123), first solve {first_s:.2f} s, "
           f"timed solve {fly_s:.2f} s ({fly_s * 1e3 / fly_iters:.1f} ms/iteration), "
-          f"launches {fly_shapes}, oracle failures {len(failures)}; first solve {first_note}; "
+          f"launches {fly_shapes}, partitioned {fly_part}, oracle failures {len(failures)}; "
+          f"first solve {first_note}; "
           f"timed solve {graph_note()} (before the graphs: {EARLIER['flywheel']})", flush=True)
     if failures:
         fail("long horizon", "flywheel oracle: " + "; ".join(failures[:5]))
-    for k in ("factor", "solve"):
-        if not any(kk == k and K == FLYWHEEL_N + 1 for kk, _b, K, _w in fly_shapes):
-            fail("long horizon", f"no {k} launch at K={FLYWHEEL_N + 1}: {fly_shapes}")
+    check_partitioned("long horizon", fly_shapes, fly_part, ("factor", 4, FLYWHEEL_N + 1, 4),
+                      [("solve", 1, FLYWHEEL_N + 1, 4)])
     print(f"long horizon phase: {time.monotonic() - t_phase:.1f} s", flush=True)
 
     # -- 7. restoration: cart-pole N=2000 -----------------------------------
@@ -1103,21 +1419,20 @@ def main() -> None:
     outcome, x_new, _s, _y, _z, fr_iters = restore(funcs, state, options, parent_backend=backend)
     torch.cuda.synchronize()
     restore_s = time.monotonic() - t0
-    fr_shapes = dict(cuda_banded.LAUNCHES_BY_SHAPE)
+    fr_shapes, fr_part, fr_part_launches = path_counts()
     v1 = violation(x_new)
     path_iterations["restoration"] = fr_iters
     print(f"restoration cart-pole N={RESTORATION_N}: {outcome} after {fr_iters} iterations, "
           f"{restore_s:.2f} s ({restore_s * 1e3 / max(fr_iters, 1):.1f} ms/iteration with the "
           f"entry's captures), violation {v0:.6g} -> {v1:.6g} ({v1 / v0:.4f} of the start), "
-          f"launches {fr_shapes}, {graph_note()} (before the graphs: "
+          f"launches {fr_shapes}, partitioned {fr_part}, {graph_note()} (before the graphs: "
           f"{EARLIER['restoration']})", flush=True)
     if outcome != "resume":
         fail("restoration", f"outcome {outcome}")
     if not v1 < 0.95 * v0:
         fail("restoration", f"violation {v1} is not below 0.95 x {v0}")
-    for k in ("factor", "solve"):
-        if not any(kk == k and K == RESTORATION_N + 1 and w == 37 for kk, _b, K, w in fr_shapes):
-            fail("restoration", f"no {k} launch at K={RESTORATION_N + 1}, w=37: {fr_shapes}")
+    check_partitioned("restoration", fr_shapes, fr_part, ("factor", 4, RESTORATION_N + 1, 37),
+                      [("solve", 1, RESTORATION_N + 1, 37)])
     print(f"restoration phase: {time.monotonic() - t_phase:.1f} s", flush=True)
 
     # -- 8. SQP on the banded kernels: flywheel without input bounds --------
@@ -1138,7 +1453,7 @@ def main() -> None:
     status = sqp.solve(device="cuda")
     torch.cuda.synchronize()
     sqp_s = time.monotonic() - t0
-    sqp_shapes = dict(cuda_banded.LAUNCHES_BY_SHAPE)
+    sqp_shapes, sqp_part, sqp_part_launches = path_counts()
     sqp_iters = sqp.last_solve_stats.iterations
     if status != ExitStatus.SUCCESS:
         fail("banded SQP", f"timed solve ended {status}")
@@ -1155,7 +1470,8 @@ def main() -> None:
           f"({sqp_s * 1e3 / max(sqp_iters, 1):.1f} ms/iteration), backend "
           f"{type(sqp_backend).__name__} K={sqp_backend.K} stage width w={sqp_backend.w}, "
           f"x_0 {Xs[0, 0]:.3e}, x_N {Xs[0, -1]:.6f}, dynamics residual {sqp_dyn:.3e}, "
-          f"launches {sqp_shapes}, timed solve {graph_note()} (before the graphs: "
+          f"launches {sqp_shapes}, partitioned {sqp_part}, timed solve {graph_note()} (before "
+          f"the graphs: "
           f"{EARLIER['banded SQP']})", flush=True)
     if not abs(Xs[0, 0]) < 1e-9:
         fail("banded SQP", f"x_0 = {Xs[0, 0]}")
@@ -1163,9 +1479,9 @@ def main() -> None:
         fail("banded SQP", f"x_N = {Xs[0, FLYWHEEL_N]} is not above 9.9")
     if not sqp_dyn <= 1e-7:
         fail("banded SQP", f"dynamics residual {sqp_dyn:.3e} above 1e-7")
-    for k in ("factor", "solve"):
-        if not any(kk == k and K == FLYWHEEL_N + 1 for kk, _b, K, _w in sqp_shapes):
-            fail("banded SQP", f"no {k} launch at K={FLYWHEEL_N + 1}: {sqp_shapes}")
+    check_partitioned("banded SQP", sqp_shapes, sqp_part,
+                      ("factor", 4, FLYWHEEL_N + 1, sqp_backend.w),
+                      [("solve", 1, FLYWHEEL_N + 1, sqp_backend.w)])
     print(f"banded SQP phase: {time.monotonic() - t_phase:.1f} s", flush=True)
 
     # -- 9. the dense path: README (SQP) and the plain-Problem flywheel -----
@@ -1261,7 +1577,7 @@ def main() -> None:
         status = mt.solve(mt_options)
     torch.cuda.synchronize()
     mt_s = time.monotonic() - t0
-    mt_shapes = dict(cuda_banded.LAUNCHES_BY_SHAPE)
+    mt_shapes, mt_part, mt_part_launches = path_counts()
     mt_stats = mt.last_solve_stats
     path_iterations["minimum time"] = mt_stats.iterations
     mt_total = float(mt.dt().value(0, 0)) * MIN_TIME_N
@@ -1273,7 +1589,8 @@ def main() -> None:
           f"{mt_s:.2f} s ({mt_s * 1e3 / max(mt_stats.iterations, 1):.1f} ms/iteration), host syncs "
           f"{mt_stats.host_syncs} ({mt_stats.host_syncs_per_iteration:.3f}/iteration), N·dt "
           f"{mt_total:.10f} s against T* {t_star:.10f} s (rel {abs(mt_total / t_star - 1):.3e}), "
-          f"x_N {mt_x[0, -1]:.9f}, launches {mt_shapes}, {graph_note()} (before the graphs: "
+          f"x_N {mt_x[0, -1]:.9f}, launches {mt_shapes}, partitioned {mt_part}, {graph_note()} "
+          f"(before the graphs: "
           f"{EARLIER['minimum time']})", flush=True)
     if status != ExitStatus.SUCCESS:
         fail("minimum time", f"solve ended {status}")
@@ -1283,14 +1600,14 @@ def main() -> None:
             and abs(mt_x[0, -1] - 50.0) <= 1e-6 and np.abs(mt_u).max() <= 12.0 + 1e-9):
         fail("minimum time", f"x_0 {mt_x[0, 0]}, x_N {mt_x[0, -1]}, max |u| {np.abs(mt_u).max()}")
     K_mt = MIN_TIME_N + 1
-    for key in (("factor", 4, K_mt, 4), ("solve", 4, K_mt, 4), ("solve", 1, K_mt, 4)):
-        if not mt_shapes.get(key):
-            fail("minimum time", f"no launch at {key}: {mt_shapes}")
+    check_partitioned("minimum time", mt_shapes, mt_part, ("factor", 4, K_mt, 4),
+                      [("solve", 4, K_mt, 4), ("solve", 1, K_mt, 4)])
     print(f"minimum time phase: {time.monotonic() - t_phase:.1f} s", flush=True)
 
     # -- 11. the rest of the OCP layer --------------------------------------
     t_phase = time.monotonic()
     rest_shapes: collections.Counter = collections.Counter()
+    rest_part_launches: collections.Counter = collections.Counter()
 
     def solve_path(label, problem):
         cuda_banded.reset_counters()
@@ -1301,8 +1618,9 @@ def main() -> None:
             status = problem.solve(device="cuda")
         torch.cuda.synchronize()
         seconds = time.monotonic() - t0
-        shapes = dict(cuda_banded.LAUNCHES_BY_SHAPE)
+        shapes, part, part_launches = path_counts()
         rest_shapes.update(shapes)
+        rest_part_launches.update(part_launches)
         [cached] = [v for k, v in problem._solver_cache.items() if k[0] == "ipm"]
         backend = cached[-1]
         stats = problem.last_solve_stats
@@ -1311,10 +1629,10 @@ def main() -> None:
               f"{type(backend).__name__}"
               + (f" K={backend.K} w={backend.w}" if hasattr(backend, "K") else "")
               + f", host syncs {stats.host_syncs_per_iteration:.3f}/iteration, "
-              f"launches {shapes}, {graph_note()}", flush=True)
+              f"launches {shapes}, partitioned {part}, {graph_note()}", flush=True)
         if status != ExitStatus.SUCCESS:
             fail("OCP layer", f"{label} ended {status}")
-        return backend, shapes, stats
+        return backend, (shapes, part), stats
 
     # Per-step timesteps fold into the stage: m = 4, and stage 0 holds x₀
     # beside its dynamics rows, p = 4.
@@ -1327,8 +1645,8 @@ def main() -> None:
     print(f"  total time {per_step_total:.10f} s", flush=True)
     if not abs(per_step_total - 2.0) <= 2e-2:
         fail("OCP layer", f"per-step minimum time {per_step_total} s, not 2 s")
-    if not shapes.get(("factor", 4, PER_STEP_N + 1, 8)):
-        fail("OCP layer", f"per-step dt: no K1 launch at (4, {PER_STEP_N + 1}, 8): {shapes}")
+    check_partitioned("OCP layer", *shapes, ("factor", 4, PER_STEP_N + 1, 8),
+                      [("solve", 1, PER_STEP_N + 1, 8)])
 
     colloc = OCP(1, 1, COLLOCATION_T / COLLOCATION_N, COLLOCATION_N, lambda x, u: -x + u,
                  DynamicsType.EXPLICIT_ODE, TimestepMethod.FIXED,
@@ -1352,8 +1670,8 @@ def main() -> None:
             and np.abs(cu).max() <= 12.0 + 1e-9 and defect <= 1e-8):
         fail("OCP layer", f"collocation: x_0 {cx[0]}, x_N {cx[-1]}, max |u| "
              f"{np.abs(cu).max()}, defect {defect}")
-    if not any(k == "factor" and K == COLLOCATION_N + 1 for k, _b, K, _w in shapes):
-        fail("OCP layer", f"collocation: no K1 launch at K={COLLOCATION_N + 1}: {shapes}")
+    check_partitioned("OCP layer", *shapes, ("factor", 4, COLLOCATION_N + 1, backend.w),
+                      [("solve", 1, COLLOCATION_N + 1, backend.w)])
 
     dd, DDX, DDU = differential_drive.differential_drive_problem(N=40, total_time=4.0)
     solve_path("differential drive N=40", dd)
@@ -1596,6 +1914,7 @@ def main() -> None:
 
     eps32 = eps_inertia(torch.float32)
     f32_shapes: collections.Counter = collections.Counter()
+    f32_part: collections.Counter = collections.Counter()
 
     def f32_path(name, run):
         """One float32 path with the launch counts at 0 just before it; its
@@ -1609,13 +1928,14 @@ def main() -> None:
             result = run()
             torch.cuda.synchronize()
             seconds = time.monotonic() - t0
-        shapes = dict(cuda_banded.LAUNCHES_BY_SHAPE)
+        shapes, part, _part_launches = path_counts()
         if cuda_banded.FACTOR_LAUNCHES or cuda_banded.SOLVE_LAUNCHES:
             fail("float32", f"{name}: float64 kernel launches {shapes}")
         if sum(tally.float64_calls.values()):
             fail("float32", f"{name}: graphed calls with float64 tensors "
                  f"{dict(tally.float64_calls)}")
         f32_shapes.update(shapes)
+        f32_part.update(part)
         return result, seconds, shapes, tally
 
     def hold_status(name, status, expected):
@@ -1663,28 +1983,35 @@ def main() -> None:
     f32_iterations = {}
     for n_fly, (expected, jax_iters) in F32_FLYWHEEL_JAX.items():
         p, FX32, _FU32 = flywheel.flywheel_problem(N=n_fly, total_time=TOTAL_TIME)
+        f32_part.clear()
         status, seconds, shapes, tally = f32_path(
             f"flywheel N={n_fly}",
             lambda: p.solve(device="cuda", dtype="float32", tolerance=1e-2))
+        # At K ≥ 256 the card takes the partitioned form: its calls by the
+        # outer system's shape stand beside the launches.
+        systems = {**shapes, **f32_part}
         iters = p.last_solve_stats.iterations
         f32_iterations[n_fly] = iters
         x_end = float(FX32.value()[0, n_fly])
         print(f"float32 flywheel N={n_fly}: {status}, {iters} iterations (the JAX package on a "
               f"CPU: {expected}, {jax_iters} iterations), {seconds:.2f} s "
               f"({seconds * 1e3 / max(iters, 1):.1f} ms/iteration), x_N {x_end:.6f}, launches "
-              f"{shapes}, graphs' dtypes {sorted(str(d) for d in tally.dtypes)}, {graph_note()}",
+              f"{shapes}, partitioned {dict(f32_part)}, graphs' dtypes {sorted(str(d) for d in tally.dtypes)}, {graph_note()}",
               flush=True)
         hold_status(f"flywheel N={n_fly}", status, expected)
         if p._last_state.x.dtype != torch.float32:
             fail("float32", f"flywheel N={n_fly}: the iterate is {p._last_state.x.dtype}")
         for k in ("factor_f32", "solve_f32"):
-            if not any(kk == k and K == n_fly + 1 and w == 4 for kk, _b, K, w in shapes):
+            if not any(kk == k and K == n_fly + 1 and w == 4 for kk, _b, K, w in systems):
                 fail("float32", f"flywheel N={n_fly}: no {k} launch at (·, {n_fly + 1}, 4)")
         if expected == "SUCCESS" and not abs(x_end - 10.0) <= 5.0:
             fail("float32", f"flywheel N={n_fly}: x_N {x_end} is not within 5 of 10 (the JAX "
                  f"test's bound)")
+        if n_fly + 1 >= 256:
+            check_partitioned("float32", shapes, f32_part, ("factor_f32", 2, n_fly + 1, 4),
+                              [("solve_f32", 1, n_fly + 1, 4)])
         if expected == "FEASIBILITY_RESTORATION_FAILED" and not any(
-                kk == "factor_f32" and K == n_fly + 1 and w != 4 for kk, _b, K, w in shapes):
+                kk == "factor_f32" and K == n_fly + 1 and w != 4 for kk, _b, K, w in systems):
             fail("float32", f"flywheel N={n_fly}: restoration's system was not factored in "
                  f"float32: {shapes}")
 
@@ -1810,10 +2137,21 @@ def main() -> None:
     ocp_shapes = examples_phase()
     print(f"examples phase: {time.monotonic() - t_phase:.1f} s", flush=True)
 
+    # -- 16. the partitioned factor and the time axis ---------------------
+    t_phase = time.monotonic()
+    part_kernels = partitioned_phase()
+    print(f"partitioned and time axis phase: {time.monotonic() - t_phase:.1f} s", flush=True)
+
     # -- results ----------------------------------------------------------
     path_shapes = (collections.Counter(fly_shapes) + collections.Counter(fr_shapes)
                    + collections.Counter(sqp_shapes) + collections.Counter(mt_shapes)
                    + rest_shapes)
+    # The long paths' systems take the partitioned form on the card: the
+    # K1/K2 launches it made, by the outer system's shape.
+    path_part_launches = (collections.Counter(fly_part_launches)
+                          + collections.Counter(fr_part_launches)
+                          + collections.Counter(sqp_part_launches)
+                          + collections.Counter(mt_part_launches) + rest_part_launches)
     fly_long = long[4, FLYWHEEL_N + 1, 4]
 
     def long_entry(kind, replaces):
@@ -1832,24 +2170,40 @@ def main() -> None:
             # The border's batched right-hand sides; (4, 5001, 4, 1) is the
             # minimum-time flywheel's T⁻¹·col.
             shapes += list(border.values())
+        part_launches = {f"B={B},K={K},w={w}": n for (k, B, K, w), n in path_part_launches.items()
+                         if k == kind and K * w >= TPU_CHUNKED_ROWS}
+        fly_part = part_kernels["shapes"][4, FLYWHEEL_N + 1, 4]
         return {
             "name": f"banded_{kind}_long",
             "route": "cuda",
             "source": "sleipnir_tpu_torch/csrc/banded.cu",
             "replaces": replaces,
-            "launches": sum(long_launches(path_shapes, kind).values()),
+            # The paths' long systems take the partitioned form: its K1/K2
+            # launches, by the outer system's shape, and any chain launch
+            # at a long shape.
+            "launches": sum(long_launches(path_shapes, kind).values()) + sum(part_launches.values()),
             "launches_by_shape": long_launches(path_shapes, kind),
-            # At the flywheel path's shape (factor B=4, solve B=1, K=5001, w=4);
-            # every long shape is listed under "shapes".
-            "max_abs_err": fly_long[f"{kind}_max_abs_err"],
-            "ms": fly_long[f"{kind}_ms"],
+            "partitioned_launches_by_shape": part_launches,
+            # At the flywheel path's shape (factor B=4, solve B=1, K=5001,
+            # w=4): the partitioned form the path runs ("ms"), K1/K2's
+            # chain ("chain_ms"); every long shape is under "shapes" and
+            # "partitioned_shapes".
+            "max_abs_err": fly_part[f"{kind}_max_abs_err"],
+            "ms": fly_part[f"{kind}_ms"],
+            "chain_ms": fly_long[f"{kind}_ms"],
             "us_per_stage": 1e3 * fly_long[f"{kind}_ms"] / (FLYWHEEL_N + 1),
-            "plain_ms": fly_long[f"{kind}_plain_ms"],
+            "plain_ms": fly_part[f"{kind}_plain_ms"],
+            "chain_plain_ms": fly_long[f"{kind}_plain_ms"],
             "bound_ms": fly_long[f"{kind}_bound_ms"],
             "bound_by": fly_long[f"{kind}_bound_by"],
             "library_ms": None,
             "shapes": shapes,
-            **({"ms_B1": fly_long["factor_b1_ms"]} if kind == "factor" else {}),
+            "partitioned_shapes": [
+                {"B": B, "K": K, "w": w, **{k: v for k, v in e.items()
+                                            if k.startswith(kind) or k in ("system", "P", "L")}}
+                for (B, K, w), e in part_kernels["shapes"].items()],
+            **({"ms_B1": fly_long["factor_b1_ms"],
+                "crossover": part_kernels["crossover"]} if kind == "factor" else {}),
         }
 
     kernels = [
@@ -1948,6 +2302,7 @@ def main() -> None:
             "shapes": shapes,
         }
 
+    kernels[0]["time_axis"] = part_kernels["time_axis"]
     kernels += [
         f32_entry("factor", "sleipnir_tpu/ops/pallas_banded.py:360", (2, F32_N + 1, 4)),
         f32_entry("solve", "sleipnir_tpu/ops/pallas_banded.py:421", (1, F32_N + 1, 4)),

@@ -30,6 +30,16 @@ would launch. The TPU's chunked kernels
 (`_pallas_factor_chunked`, `_pallas_solve_chunked`), which long horizons
 take there, have no separate counterpart: these kernels stream every
 stage's blocks from device memory whatever K is.
+
+`banded_factor_part` and `banded_solve_part` are the partitioned
+(SPIKE/Schur) form of the same factor and solve (`ops/block_tridiag.py`,
+`block_tridiag_factor_part`), built from these two kernels: K1 over the
+interiors of all parts as one batch, K2 for the condensation columns,
+batched torch products for the interface blocks, and the reduced system
+again. `PARTITIONED_BY_SHAPE` counts their calls by the outer system's
+("factor" | "solve" [+ "_f32"], B, K, w), and `PARTITIONED_LAUNCHES` the
+kernel launches (or plain-twin calls, on the CPU) they made, by the same
+key.
 """
 
 from __future__ import annotations
@@ -52,6 +62,11 @@ SOLVE_LAUNCHES_F32 = 0
 LAUNCHES_BY_SHAPE: collections.Counter = collections.Counter()
 #: Wrapper calls given CPU tensors (the plain twin ran), by the same key.
 PLAIN_BY_SHAPE: collections.Counter = collections.Counter()
+#: Calls of the partitioned factor and solve by the outer system's shape,
+#: and the K1/K2 calls each key made (launches, or plain-twin calls on
+#: the CPU).
+PARTITIONED_BY_SHAPE: collections.Counter = collections.Counter()
+PARTITIONED_LAUNCHES: collections.Counter = collections.Counter()
 
 #: Widest stage block the kernels take (the feasibility-restoration
 #: system of cart-pole is 37 wide); their shared memory is sized for it.
@@ -75,6 +90,8 @@ def reset_counters() -> None:
     SOLVE_LAUNCHES_F32 = 0
     LAUNCHES_BY_SHAPE.clear()
     PLAIN_BY_SHAPE.clear()
+    PARTITIONED_BY_SHAPE.clear()
+    PARTITIONED_LAUNCHES.clear()
 
 
 def _kind(kind: str, dtype: torch.dtype) -> str:
@@ -207,3 +224,37 @@ def banded_solve(fac: BlockTridiagFactor, b: torch.Tensor) -> torch.Tensor:
         SOLVE_LAUNCHES += 1
     LAUNCHES_BY_SHAPE[_kind("solve", dtype), B, K, w] += 1
     return x
+
+
+def _calls() -> int:
+    """K1/K2 calls so far: kernel launches and plain-twin calls."""
+    return (FACTOR_LAUNCHES + SOLVE_LAUNCHES + FACTOR_LAUNCHES_F32 + SOLVE_LAUNCHES_F32
+            + sum(PLAIN_BY_SHAPE.values()))
+
+
+def _partitioned(kind: str, t: torch.Tensor, run):
+    key = (_kind(kind, t.dtype), *t.shape[:3])
+    before = _calls()
+    out = run()
+    PARTITIONED_BY_SHAPE[key] += 1
+    PARTITIONED_LAUNCHES[key] += _calls() - before
+    return out
+
+
+def banded_factor_part(D: torch.Tensor, E: torch.Tensor):
+    """The partitioned factor of D (B, K, w, w) and E (B, K-1, w, w) on
+    K1 and K2 (their plain twin on CPU tensors): a `PartitionedFactor`,
+    or K1's factor when K < `block_tridiag.PART_MIN_BLOCKS`."""
+    if D.shape[1] < block_tridiag.PART_MIN_BLOCKS:
+        return banded_factor(D, E)
+    return _partitioned("factor", D, lambda: block_tridiag.block_tridiag_factor_part(
+        D, E, banded_factor, banded_solve))
+
+
+def banded_solve_part(fac, b: torch.Tensor) -> torch.Tensor:
+    """Solve with a `banded_factor_part` result for b (B, K, w) or
+    (B, K, w, r) on K2 (its plain twin on CPU tensors)."""
+    if not isinstance(fac, block_tridiag.PartitionedFactor):
+        return banded_solve(fac, b)
+    return _partitioned("solve", b, lambda: block_tridiag.block_tridiag_solve_part(
+        fac, b, banded_solve))

@@ -418,11 +418,12 @@ class OCP(Problem):
         structure = self._stage_structure(comp)
         if structure is None:
             return None
+        mesh, mesh_axis = self._time_mesh if self._time_mesh is not None else (None, "t")
         return BandedBackend(
             structure,
             comp["f"], comp["c_e"], comp["c_i"],
             comp["n"], comp["me"], comp["mi"],
-            device, syncs, dtype,
+            device, syncs, dtype, mesh=mesh, mesh_axis=mesh_axis,
         )
 
     @staticmethod

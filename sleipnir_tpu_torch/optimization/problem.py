@@ -245,6 +245,19 @@ class Problem:
         self._last_state = None
         #: Iterations and host syncs of the last interior-point solve.
         self.last_solve_stats: SolveStats | None = None
+        self._time_mesh = None  # (Mesh, axis name): see set_time_axis_mesh
+
+    def set_time_axis_mesh(self, mesh, axis_name: str = "t") -> None:
+        """Split the KKT factor's stage (time) axis over the devices of a
+        `sleipnir_tpu_torch.parallel.time_axis.Mesh`. It takes effect only
+        on problems that run the banded OCP backend, whose factor and
+        solves become the split of `parallel/time_axis.py`: each device
+        eliminates its chunk's interior, and the interface system is
+        gathered to every device; its pivots keep the inertia-corrected
+        regularization as it is. The solve's own device (`Options.device`)
+        keeps the iterates. mesh=None reverts to one device."""
+        self._time_mesh = None if mesh is None else (mesh, axis_name)
+        self._solver_cache.clear()
 
     # -- variable / cost / constraint registration -------------------------
 
@@ -633,8 +646,11 @@ class Problem:
 
     # -- interior point (inequality constraints) ----------------------------
 
-    def _prepare_ipm(self, comp: dict, options: Options, device: torch.device):
-        key = self._cache_key("ipm", options, device)
+    def _prepare_ipm(self, comp: dict, options: Options, device: torch.device,
+                     lane_group: int = 0):
+        # A batched solve over a mesh builds one solver per lane group, also
+        # for groups that share a device.
+        key = self._cache_key("ipm", options, device) + ((lane_group,) if lane_group else ())
         cached = self._solver_cache.get(key)
         if cached is not None:
             return cached

@@ -1,14 +1,20 @@
 """Block-tridiagonal (banded) KKT backend for direct-transcription OCPs.
 
-Port of `sleipnir_tpu/optimization/solver/kkt_banded.py` without the
-device mesh and the TPU-only factorization variants.
+Port of `sleipnir_tpu/optimization/solver/kkt_banded.py`, its device
+mesh on the time axis and its partitioned factor included; the TPU's
+Pallas path is the kernels below, and its opt-in explicit-inverse and
+cyclic-reduction variants are not ported.
 
 Variables are ordered by stage zₖ = (xₖ, uₖ); equality rows are assigned
 to the stage they are anchored at, padded to a uniform count per stage
 (padded rows carry a fixed −1 pivot so the expected inertia stays exact).
 The reduced KKT matrix is then block tridiagonal with (w × w) blocks,
 w = m + p, and factors in O(N·w³) with the Hopper kernels of
-`ops/cuda_banded.py` (their plain twin on CPU tensors).
+`ops/cuda_banded.py` (their plain twin on CPU tensors): as one chain of
+K stages (K1), or, on the card from K = 256 stages, in the partitioned
+form, whose sequential depth is about 2·√K (`use_partitioned`). With a
+time-axis mesh (`Problem.set_time_axis_mesh`) the factor and the solves
+split the horizon over the mesh's devices (`parallel/time_axis.py`).
 
 Derivatives are never materialized densely. Banded blocks are extracted
 with *colored* probes, all vmapped with `torch.func.vmap` on every device:
@@ -36,6 +42,8 @@ from sleipnir_tpu_torch.ops import cuda_banded
 from sleipnir_tpu_torch.ops.block_tridiag import (
     BlockTridiagFactor,
     block_tridiag_inertia,
+    part_inertia,
+    part_pivots,
 )
 from sleipnir_tpu_torch.ops.ldlt import ldlt_unblocked
 from sleipnir_tpu_torch.optimization.solver.kkt_backend import (
@@ -55,6 +63,11 @@ EPS_INERTIA = eps_inertia(torch.float64)
 #: The reference's small-pivot gate (sparse_regularized_ldlt.hpp:82-83):
 #: an unregularized factorization with |pivot| below it counts as failed.
 SMALL_PIVOT = 1e-4
+
+#: Stages from which a backend on the card takes the partitioned factor:
+#: the JAX package's rule for an accelerator that is not a TPU
+#: (sleipnir_tpu/optimization/solver/kkt_banded.py:263-280), as it stands.
+PARTITIONED_MIN_STAGES = 256
 
 
 def _equilibrate(D: torch.Tensor, E: torch.Tensor, rounds: int = 2):
@@ -122,7 +135,9 @@ class BandedDerivs(NamedTuple):
 
 
 class BandedFactor(NamedTuple):
-    fac: BlockTridiagFactor  # factor of S M S, batch axis of size 1
+    #: Factor of S M S, batch axis of size 1: a BlockTridiagFactor, a
+    #: PartitionedFactor or, with a mesh, a time_axis.ShardedFactor.
+    fac: object
     #: Ruiz scale (K, w): solves are x = S · solve(fac, S · b).
     s: torch.Tensor
     #: The border: assembled border columns in staged layout (nb, K, w),
@@ -155,11 +170,25 @@ class BandedBackend:
         device: torch.device,
         syncs: HostSyncs,
         dtype: torch.dtype = torch.float64,
+        mesh=None,
+        mesh_axis: str = "t",
     ) -> None:
         st = structure
         self.structure = st
         self.n, self.me, self.mi = n, me, mi
         self.device = device
+        #: An optional `time_axis.Mesh`: the factor and the solves split
+        #: the stage (time) axis over its devices. It takes precedence over
+        #: the partitioned form, as in the JAX package.
+        self.mesh = mesh
+        self.mesh_axis = mesh_axis
+        #: The partitioned factor replaces K1's K-deep chain on the card at
+        #: long horizons; the CPU keeps the chain. Tests set it after
+        #: __init__ to run the partitioned form on the CPU.
+        self.use_partitioned = (
+            mesh is None and device.type == "cuda"
+            and st.num_stages >= PARTITIONED_MIN_STAGES
+        )
         self.dtype = dtype
         self.eps_inertia = eps_inertia(dtype)
         self.syncs = syncs
@@ -452,9 +481,7 @@ class BandedBackend:
         B = deltas.shape[0]
         eps = self.eps_inertia
         Ds, Es, s_eq = _equilibrate(D, E)
-        fac = cuda_banded.banded_factor(Ds.contiguous(), Es.contiguous())
-        pos, neg, zero = block_tridiag_inertia(fac, eps)
-        piv = fac.d.flatten(1)
+        fac, (pos, neg, zero), piv = self._chain_factor(Ds.contiguous(), Es.contiguous())
         if nb > 0:
             # The border Schur complement's pivots count toward the
             # inertia and the gates like the band's, on the device.
@@ -480,7 +507,7 @@ class BandedBackend:
 
         def tsolve(rhs):  # (B, nb, K, w) -> T⁻¹ rhs, per candidate
             b = (s_eq[:, None] * rhs).permute(0, 2, 3, 1).contiguous()
-            return s_eq[:, None] * cuda_banded.banded_solve(fac, b).permute(0, 3, 1, 2)
+            return s_eq[:, None] * self.chain_solve(fac, b).permute(0, 3, 1, 2)
 
         cols = col0.expand(deltas.shape[0], *col0.shape)
         X = tsolve(cols)
@@ -510,9 +537,37 @@ class BandedBackend:
             )
         return torch.cat([colm, cole], dim=-1), e0
 
+    def _chain_factor(self, Ds: torch.Tensor, Es: torch.Tensor):
+        """Factor B equilibrated staged systems, Ds (B, K, w, w) and Es
+        (B, K-1, w, w), in the selected form. Returns (fac, (pos, neg,
+        zero), pivots (B, ·)), the counts per system."""
+        eps = self.eps_inertia
+        if self.mesh is not None:
+            from sleipnir_tpu_torch.parallel import time_axis  # noqa: PLC0415
+
+            Dp, Ep, _b, K = time_axis.pad_to_devices(Ds, Es, None, self.mesh.size)
+            fac = time_axis.sharded_factor(self.mesh, self.mesh_axis, Dp, Ep)
+            piv = torch.cat([p.to(self.device) for p in time_axis.sharded_pivots(fac)], dim=1)
+            inertia = time_axis.sharded_inertia(fac, eps, K)
+            return fac, tuple(t.to(self.device) for t in inertia), piv
+        if self.use_partitioned:
+            fac = cuda_banded.banded_factor_part(Ds, Es)
+            return fac, part_inertia(fac, eps, self.K), torch.cat(part_pivots(fac), dim=1)
+        fac = cuda_banded.banded_factor(Ds, Es)
+        return fac, block_tridiag_inertia(fac, eps), fac.d.flatten(1)
+
+    def chain_solve(self, fac, b: torch.Tensor) -> torch.Tensor:
+        """Solve factored staged systems for b (B, K, w) or (B, K, w, r)
+        with a factor of `_chain_factor`."""
+        if self.mesh is not None:
+            from sleipnir_tpu_torch.parallel import time_axis  # noqa: PLC0415
+
+            return time_axis.sharded_solve(self.mesh, self.mesh_axis, fac, b)
+        return cuda_banded.banded_solve_part(fac, b)
+
     def _scaled_solve(self, fac: BandedFactor, b: torch.Tensor) -> torch.Tensor:
         """Solve the regularized staged system for b (K, w)."""
-        return fac.s * cuda_banded.banded_solve(fac.fac, (fac.s * b)[None])[0]
+        return fac.s * self.chain_solve(fac.fac, (fac.s * b)[None])[0]
 
     def _border_block_solve(self, fac: BandedFactor, r: torch.Tensor) -> torch.Tensor:
         """Solve S_b v = r with the border Schur LDLᵀ ((nb,) rhs)."""

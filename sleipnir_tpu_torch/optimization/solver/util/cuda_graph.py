@@ -27,11 +27,17 @@ that is how the CPU runs the solvers, not a fallback. The undecorated
 function stays reachable as `.eager`, so a run can hold graphed results
 against eager ones. `CAPTURES`, `REPLAYS` and `CAPTURE_SECONDS` count
 what every graph did since `reset_counters()`.
+
+Captures run in CUDA's thread-local capture mode, one at a time: the
+batched solve over a mesh drives each device's lanes from a thread of its
+own, and in the default (global) mode any thread's unsafe CUDA call would
+end another thread's capture.
 """
 
 from __future__ import annotations
 
 import gc
+import threading
 import time
 from typing import Callable
 
@@ -43,6 +49,11 @@ from torch.utils import _pytree as pytree
 CAPTURES = 0
 REPLAYS = 0
 CAPTURE_SECONDS = 0.0
+
+
+#: Held for a whole capture, its eager warm-up included: one capture at a
+#: time, so no thread turns the collector back on during another's.
+_CAPTURING = threading.Lock()
 
 
 def reset_counters() -> None:
@@ -128,6 +139,10 @@ class Graphed:
         )
 
     def _capture(self, key, leaves, spec):
+        with _CAPTURING:
+            return self._capture_locked(key, leaves, spec)
+
+    def _capture_locked(self, key, leaves, spec):
         global CAPTURES, CAPTURE_SECONDS
         pool, stream = self.graphs._cuda()
         t0 = time.perf_counter()
@@ -148,7 +163,8 @@ class Graphed:
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(graph, pool=pool, stream=stream):
+            with torch.cuda.graph(graph, pool=pool, stream=stream,
+                                  capture_error_mode="thread_local"):
                 out = self.eager(*pytree.tree_unflatten(inputs, spec))
         except Exception as e:
             raise RuntimeError(f"CUDA graph capture of {self.name} failed: {e}") from e

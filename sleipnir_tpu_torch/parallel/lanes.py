@@ -22,7 +22,9 @@ branch into a per-lane mask and merges both sides with `torch.where`:
   - the KKT factor and solves never run under `vmap`: the staged systems
     of all lanes and all ladder candidates are flattened into one batch,
     so K1 factors the 4·L systems of a ladder in one launch and K2 solves
-    the L step systems in one launch (`ops/cuda_banded.py`); the dense
+    the L step systems in one launch (`ops/cuda_banded.py`; at long
+    horizons on the card, one partitioned factor or solve of that batch,
+    through the backend's `chain_solve`); the dense
     backend's LDLᵀ takes the same flattened batch.
 
 A lane that leaves RUNNING stays as it is, as the JAX runner leaves it:
@@ -38,7 +40,6 @@ import functools
 import torch
 from torch.func import vmap
 
-from sleipnir_tpu_torch.ops import cuda_banded
 from sleipnir_tpu_torch.ops.ldlt import ldlt_unblocked
 from sleipnir_tpu_torch.optimization.solver import status_codes
 from sleipnir_tpu_torch.optimization.solver.exit_status import ExitStatus
@@ -217,7 +218,7 @@ class _BandedLanes:
 
         def tsolve(rhs):  # (L·C, nb, K, w)
             rhs = (s_eq[:, None] * rhs).permute(0, 2, 3, 1).contiguous()
-            return s_eq[:, None] * cuda_banded.banded_solve(fac, rhs).permute(0, 3, 1, 2)
+            return s_eq[:, None] * b.chain_solve(fac, rhs).permute(0, 3, 1, 2)
 
         cols = col0[:, None].expand(L, C, *shape).reshape(L * C, *shape)
         X = tsolve(cols)
@@ -235,7 +236,7 @@ class _BandedLanes:
     def _bordered_solve(self, fac: BandedFactor, rhs, rhs_b):
         """The arrowhead solve of every lane: the band in one K2 launch at
         (L, K, w), then the border's small Schur systems."""
-        u0 = fac.s * cuda_banded.banded_solve(fac.fac, (fac.s * rhs).contiguous())
+        u0 = fac.s * self.b.chain_solve(fac.fac, (fac.s * rhs).contiguous())
         if self.b.nb == 0:
             return u0, rhs_b
         r = rhs_b - torch.einsum("lbkw,lkw->lb", fac.col, u0)

@@ -11,7 +11,7 @@ import torch
 from sleipnir_tpu_torch.models.cart_pole import cart_pole_problem
 from sleipnir_tpu_torch.optimization.solver.exit_status import ExitStatus
 from sleipnir_tpu_torch.optimization.solver.options import Options
-from sleipnir_tpu_torch.parallel import solve_ipm_batched
+from sleipnir_tpu_torch.parallel import Mesh, solve_ipm_batched
 
 torch.set_num_threads(1)
 
@@ -69,5 +69,10 @@ def test_nan_guess_ends_its_lane_only(problem, guess, single):
 
 
 def test_only_one_device_is_taken(problem, guess):
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+    """A batch takes one device unless it is given a `Mesh`: anything else
+    as the mesh raises, and a mesh its lanes do not split over raises
+    before any solve."""
+    with pytest.raises(TypeError, match="Mesh"):
         solve_ipm_batched(problem, [guess], Options(device="cpu"), mesh=object())
+    with pytest.raises(ValueError, match="do not split evenly"):
+        solve_ipm_batched(problem, [guess], Options(device="cpu"), mesh=Mesh.of(["cpu"] * 2))

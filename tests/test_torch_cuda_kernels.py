@@ -209,6 +209,65 @@ def test_kernels_match_twin_at_long_horizons(cuda_device, B, K, w, conditioned):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize(
+    "B,K,w,conditioned",
+    [(4, 5001, 4, False), (4, 5001, 13, False), (4, 2001, 37, True), (1, 256, 13, False)],
+)
+def test_partitioned_factor_matches_twin_and_chain_on_card(cuda_device, B, K, w, conditioned):
+    """The partitioned factor and solve on K1/K2 (`banded_factor_part`,
+    `banded_solve_part`) at the long paths' shapes, against the
+    partitioned twin on the same CUDA tensors and against K1's chain:
+    inertia exactly, solutions to 1e-10. The condensation columns are
+    K2 at r = 2w (74 at w=37)."""
+    if conditioned:
+        D, E, b = _conditioned_system(np.random.default_rng(B * K + w), B, K, w)
+    else:
+        D, E, b = _random_system(np.random.default_rng(B * K + w), B, K, w, None)
+    Dg, Eg, bg = banded_system_from_numpy(D, E, b, cuda_device)
+    cuda_banded.reset_counters()
+    fk = cuda_banded.banded_factor_part(Dg, Eg)
+    xk = cuda_banded.banded_solve_part(fk, bg)
+    torch.cuda.synchronize()
+    P, L = tbt.choose_partitions(K)
+    assert isinstance(fk, tbt.PartitionedFactor)
+    assert cuda_banded.LAUNCHES_BY_SHAPE[("factor", B * P, L - 1, w)] == 1
+    assert cuda_banded.LAUNCHES_BY_SHAPE[("solve", B * P, L - 1, w)] == 2
+    assert cuda_banded.PARTITIONED_BY_SHAPE == {("factor", B, K, w): 1, ("solve", B, K, w): 1}
+    assert not cuda_banded.PLAIN_BY_SHAPE
+    fp = tbt.block_tridiag_factor_part(Dg, Eg)
+    xp = tbt.block_tridiag_solve_part(fp, bg)
+    assert _rel(xk, xp) <= 1e-10
+    fc = cuda_banded.banded_factor(Dg, Eg)
+    assert _rel(xk, cuda_banded.banded_solve(fc, bg)) <= 1e-10
+    inertia = [t.tolist() for t in tbt.part_inertia(fk, EPS_INERTIA, K)]
+    assert inertia == [t.tolist() for t in tbt.part_inertia(fp, EPS_INERTIA, K)]
+    assert inertia == [t.tolist() for t in tbt.block_tridiag_inertia(fc, EPS_INERTIA)]
+    for pk, pp in zip(tbt.part_pivots(fk), tbt.part_pivots(fp)):
+        assert pk.shape == pp.shape
+
+
+@pytest.mark.cuda
+def test_sharded_factor_on_shards_of_the_card(cuda_device):
+    """The time-axis split over 2 and 4 shards of the card (and over every
+    card when there are several) against the unsharded partitioned solve."""
+    from sleipnir_tpu_torch.parallel import time_axis as ta
+
+    D, E, b = _random_system(np.random.default_rng(2048), 1, 2048, 13, None)
+    Dg, Eg, bg = banded_system_from_numpy(D, E, b, cuda_device)
+    x0 = cuda_banded.banded_solve_part(cuda_banded.banded_factor_part(Dg, Eg), bg)
+    ref = [t.tolist() for t in tbt.part_inertia(cuda_banded.banded_factor_part(Dg, Eg),
+                                                 EPS_INERTIA, 2048)]
+    meshes = [ta.Mesh.of([cuda_device] * n) for n in (2, 4)]
+    if torch.cuda.device_count() > 1:
+        meshes.append(ta.Mesh.of([f"cuda:{i}" for i in range(torch.cuda.device_count())]))
+    for mesh in meshes:
+        Dp, Ep, _b, K = ta.pad_to_devices(Dg, Eg, None, mesh.size)
+        fac = ta.sharded_factor(mesh, "t", Dp, Ep)
+        assert _rel(ta.sharded_solve(mesh, "t", fac, bg), x0) <= 1e-8
+        assert [t.tolist() for t in ta.sharded_inertia(fac, EPS_INERTIA, K)] == ref
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("B,K,w,r", [(4, 5001, 4, 1), (4, 101, 13, 2)])
 def test_batched_multi_rhs_solve_at_the_border_shapes(cuda_device, B, K, w, r):
     """K2 over every ladder candidate with r right-hand sides each: the
