@@ -116,6 +116,20 @@ just before each path (phases 4-12) and read just after it.
      unsharded solve; and the sharded factor and solve at K=2048, w=13
      against the unsharded one to 1e-8 with equal inertia, timed per
      shard count.
+ 17. the opt-in factor forms and cart-pole's DSL dynamics: cart-pole at
+     N=100 with `fast=False` (the DSL dynamics), which must take the dense
+     backend with the JAX package's warning, reach SUCCESS, the target
+     state and the RK4 oracle; block cyclic reduction (its coarsest two
+     blocks on K1/K2) and the explicit-inverse partitioned factor against
+     K1/K2's chain at (4, 101, 13), (4, 5001, 4), (4, 5001, 13) and
+     (4, 2001, 37), B=1 solves, inertia exactly and solutions to 1e-10
+     and 1e-9, the inverse's residual on the interior-point-like chain
+     printed beside the chain's, both forms timed beside the partitioned
+     one over the crossover's shapes; then the flywheel at N=5000 under
+     SLEIPNIR_TPU_BCR=1 and under SLEIPNIR_TPU_INV=1, each a fresh
+     problem: SUCCESS, the JAX package's iterations within 2, the oracle
+     with only the JAX package's misses (BCR misses the steady-state
+     voltage at three steps there too), and the factor in that form only.
 
 From K = 256 stages the banded backend takes the partitioned form on the
 card, so the long paths of phases 6, 7, 8, 10, 11 (N=1000 and
@@ -754,6 +768,23 @@ CROSSOVER_W = (4, 13, 37)
 DRYRUN_SHARDS = 4
 DRYRUN_LANES_N = 24
 SHARDED_K, SHARDED_W = 2048, 13
+#: Phase 17, the opt-in factor forms: block cyclic reduction and the
+#: explicit-inverse partitioned factor against K1/K2's chain at these
+#: (K, w), B=4 factors and B=1 solves on well-conditioned stages, to the
+#: bounds of the JAX package's own tests (tests/solver/
+#: test_block_tridiag.py:143-151, tests/solver/test_inverse_blocks.py).
+VARIANT_SHAPES = [(101, 13), (5001, 4), (5001, 13), (2001, 37)]
+BCR_REL_TOL, INV_REL_TOL = 1e-10, 1e-9
+#: The environment variable of each opt-in form.
+VARIANT_VARIABLES = {"bcr": "SLEIPNIR_TPU_BCR", "inv": "SLEIPNIR_TPU_INV"}
+#: What the JAX package's flywheel IPM at N=5000 gives under each variable
+#: on a CPU (tests/test_torch_factor_variants_long.py): SUCCESS in these
+#: iterations (18 by default), and the steps k at which the numpy oracle's
+#: steady-state voltage check misses, with u_k there. BCR misses three.
+VARIANT_FLYWHEEL_JAX = {
+    "bcr": (24, {1792: 10.04780696798847, 1793: 9.963707644454892, 1794: 10.016436001255093}),
+    "inv": (18, {}),
+}
 
 
 def mesh_ms(fn, devices, reps: int = 5) -> float:
@@ -999,6 +1030,256 @@ def dry_run() -> dict:
               f"{r['shards']} shards {r['ms']:.3f} ms (rel diff {r['rel_err']:.2e})"
               for r in table), flush=True)
     return dry
+
+
+def variants_phase(path_iterations: dict) -> dict:
+    """Phase 17: (a) cart-pole at N=100 with its DSL dynamics, (b) block
+    cyclic reduction and the explicit-inverse factor against K1/K2's
+    chain and timed beside the partitioned form, (c) the flywheel at
+    N=5000 under each opt-in variable."""
+    out = {"dsl_cart_pole": dsl_cart_pole(path_iterations["cart-pole"]),
+           "shapes": variant_kernels(), "crossover": variant_crossover(),
+           "flywheel": variant_solves(path_iterations["flywheel"])}
+    print(json.dumps({"factor_variants": out}), flush=True)
+    return out
+
+
+def dsl_cart_pole(fast_iterations: int) -> dict:
+    """Phase 17 (a): `cart_pole_problem(fast=False)` at N=100 on the card.
+    Its symbolic dynamics do not fit the band, so it takes the dense
+    backend with the JAX package's warning; it must reach SUCCESS, the
+    target state and the RK4 oracle."""
+    from sleipnir_tpu_torch import ExitStatus
+    from sleipnir_tpu_torch.models.cart_pole import cart_pole_problem, dynamics_numpy, rk4_numpy
+    from sleipnir_tpu_torch.optimization.solver.kkt_backend import DenseBackend
+
+    t0 = time.monotonic()
+    problem, X, U = cart_pole_problem(N=N, total_time=TOTAL_TIME, fast=False)
+    build_s = time.monotonic() - t0
+    reset_graph_counts()
+    t0 = time.monotonic()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        status = problem.solve(device="cuda")
+    torch.cuda.synchronize()
+    solve_s = time.monotonic() - t0
+    stats = problem.last_solve_stats
+    [cached] = [v for k, v in problem._solver_cache.items() if k[0] == "ipm"]
+    warned = any("does not fit the block-tridiagonal" in str(w.message) for w in caught)
+    Xv, Uv = X.value(), U.value()
+    final_err = float(np.abs(Xv[:, N] - TARGET).max())
+    dyn_err = max(float(np.abs(
+        Xv[:, k + 1] - rk4_numpy(dynamics_numpy, Xv[:, k:k + 1], Uv[:, k:k + 1],
+                                 TOTAL_TIME / N).ravel()).max()) for k in range(N))
+    out = {"status": str(status), "iterations": stats.iterations,
+           "fast_iterations": fast_iterations, "build_s": build_s, "solve_s": solve_s,
+           "ms_per_iteration": solve_s * 1e3 / max(stats.iterations, 1),
+           "host_syncs_per_iteration": stats.host_syncs_per_iteration,
+           "backend": type(cached[-1]).__name__, "warned": warned,
+           "final_err": final_err, "rk4_err": dyn_err}
+    print(f"cart-pole N={N} with DSL dynamics (fast=False): {status}, {stats.iterations} "
+          f"iterations (fast=True: {fast_iterations}), build {build_s:.2f} s, first solve "
+          f"{solve_s:.2f} s ({out['ms_per_iteration']:.2f} ms/iteration, setup and captures "
+          f"included), host syncs/iteration {stats.host_syncs_per_iteration:.2f}, "
+          f"{out['backend']}, warned {warned}, final state error {final_err:.3e}, RK4 oracle "
+          f"error {dyn_err:.3e}, {graph_note()}", flush=True)
+    if status != ExitStatus.SUCCESS:
+        fail("factor variants", f"cart-pole with DSL dynamics ended {status}")
+    if not isinstance(cached[-1], DenseBackend) or not warned:
+        fail("factor variants", f"cart-pole with DSL dynamics took {out['backend']}, "
+             f"warned {warned}; the JAX package takes the dense backend with a warning")
+    if not (final_err <= 1e-6 and dyn_err <= 1e-8):
+        fail("factor variants", f"cart-pole with DSL dynamics: final state error "
+             f"{final_err:.3e}, RK4 oracle error {dyn_err:.3e}")
+    return out
+
+
+def banded_residual(D, E, x, b) -> float:
+    """‖M x − b‖∞ / ‖b‖∞ of block-tridiagonal systems, D (B, K, w, w), E
+    (B, K-1, w, w), x and b (B, K, w)."""
+    r = (D @ x[..., None])[..., 0] - b
+    r[:, 1:] += (E @ x[:, :-1, :, None])[..., 0]
+    r[:, :-1] += (E.transpose(-1, -2) @ x[:, 1:, :, None])[..., 0]
+    return (r.abs().max() / b.abs().max()).item()
+
+
+def variant_kernels() -> dict:
+    """Phase 17 (b): BCR (its coarsest two blocks on K1/K2) and the
+    explicit-inverse partitioned factor against K1/K2's chain at
+    VARIANT_SHAPES; then the explicit inverse's residual on the
+    interior-point-like chain beside the chain's and BCR's, printed and
+    not gated (the documented instability, docs/tpu_numerics.md:144-155)."""
+    from sleipnir_tpu_torch.ops import block_tridiag as plain
+    from sleipnir_tpu_torch.ops import cuda_banded
+    from sleipnir_tpu_torch.optimization.solver.kkt_backend import take
+    from sleipnir_tpu_torch.optimization.solver.kkt_banded import EPS_INERTIA
+
+    shapes = {}
+    for K, w in VARIANT_SHAPES:
+        Dg, Eg, bg = _on_card(*conditioned_system(np.random.default_rng(K + w + 17), 4, K, w))
+        b1 = bg[:1].contiguous()
+        fc = cuda_banded.banded_factor(Dg, Eg)
+        xc = cuda_banded.banded_solve(take(fc, 0), b1)
+        cuda_banded.reset_counters()
+        fb = plain.bcr_factor(Dg, Eg, cuda_banded.banded_factor)
+        xb = plain.bcr_solve(take(fb, 0), b1, cuda_banded.banded_solve)
+        torch.cuda.synchronize()
+        launches = {",".join(map(str, k)): n for k, n in cuda_banded.LAUNCHES_BY_SHAPE.items()}
+        fi = plain.block_tridiag_factor_part_inv(Dg, Eg)
+        xi = plain.block_tridiag_solve_part_inv(take(fi, 0), b1)
+        inertia = {name: [t.tolist() for t in counts] for name, counts in (
+            ("chain", plain.block_tridiag_inertia(fc, EPS_INERTIA)),
+            ("bcr", plain.bcr_inertia(fb, EPS_INERTIA, K)),
+            ("inv", plain.inv_part_inertia(fi, EPS_INERTIA, K)))}
+        entry = {"bcr_rel_err": rel_diff(xb, xc), "inv_rel_err": rel_diff(xi, xc),
+                 "bcr_max_abs_err": (xb - xc).abs().max().item(),
+                 "inv_max_abs_err": (xi - xc).abs().max().item(),
+                 "bcr_levels": len(fb.levels), "inertia": inertia["chain"],
+                 "inertia_equal": inertia["chain"] == inertia["bcr"] == inertia["inv"],
+                 "bcr_launches": launches}
+        shapes[f"K={K},w={w}"] = entry
+        print(f"factor variants (4, {K}, {w}), conditioned: inertia chain {inertia['chain']}, "
+              f"BCR {inertia['bcr']}, inverse {inertia['inv']}; solve (B=1) rel diff from "
+              f"K1/K2's chain: BCR {entry['bcr_rel_err']:.3e} ({len(fb.levels)} levels), "
+              f"inverse {entry['inv_rel_err']:.3e}; BCR's K1/K2 launches {launches}", flush=True)
+        if not entry["inertia_equal"]:
+            fail("factor variants", f"(4, {K}, {w}): inertia {inertia}")
+        if launches != {f"factor,4,2,{w}": 1, f"solve,1,2,{w}": 1}:
+            fail("factor variants", f"(4, {K}, {w}): BCR's coarsest system launched {launches}")
+        if not entry["bcr_rel_err"] <= BCR_REL_TOL:
+            fail("factor variants", f"(4, {K}, {w}): BCR rel diff {entry['bcr_rel_err']:.3e}")
+        if not entry["inv_rel_err"] <= INV_REL_TOL:
+            fail("factor variants", f"(4, {K}, {w}): inverse rel diff {entry['inv_rel_err']:.3e}")
+        del Dg, Eg, bg, b1, fc, xc, fb, xb, fi, xi
+
+    D, E, b = ipm_like_chain(np.random.default_rng(2024))
+    Dg, Eg, bg = _on_card(D, E, b)
+    residual = {
+        "chain": banded_residual(Dg, Eg, cuda_banded.banded_solve(
+            cuda_banded.banded_factor(Dg, Eg), bg), bg),
+        "bcr": banded_residual(Dg, Eg, plain.bcr_solve(
+            plain.bcr_factor(Dg, Eg, cuda_banded.banded_factor), bg, cuda_banded.banded_solve), bg),
+        "inv": banded_residual(Dg, Eg, plain.block_tridiag_solve_part_inv(
+            plain.block_tridiag_factor_part_inv(Dg, Eg), bg), bg),
+    }
+    shapes["ipm_like_chain_residual"] = residual
+    print(f"factor variants on the interior-point-like chain (1, 40, 13; cond(S_k) ~ 1e9), "
+          f"relative residual without refinement: K1/K2's chain {residual['chain']:.3e}, BCR "
+          f"{residual['bcr']:.3e}, explicit inverse {residual['inv']:.3e} (not gated)",
+          flush=True)
+    torch.cuda.empty_cache()
+    return shapes
+
+
+def variant_crossover() -> list:
+    """Phase 17 (b): BCR and the explicit inverse timed beside the
+    partitioned form at the crossover's shapes, factors at B=4 and solves
+    at B=1, on well-conditioned stages."""
+    from sleipnir_tpu_torch.ops import block_tridiag as plain
+    from sleipnir_tpu_torch.ops import cuda_banded
+    from sleipnir_tpu_torch.optimization.solver.kkt_backend import take
+
+    rows = []
+    for w in CROSSOVER_W:
+        for K in CROSSOVER_K:
+            Dg, Eg, bg = _on_card(*conditioned_system(np.random.default_rng(K + w + 18), 4, K, w))
+            b1 = bg[:1].contiguous()
+            fp = take(cuda_banded.banded_factor_part(Dg, Eg), 0)
+            fb = take(plain.bcr_factor(Dg, Eg, cuda_banded.banded_factor), 0)
+            fi = take(plain.block_tridiag_factor_part_inv(Dg, Eg), 0)
+            reps = 2 if K * w > 20000 else 5
+            row = {
+                "K": K, "w": w,
+                "part_factor_ms": cuda_ms(lambda: cuda_banded.banded_factor_part(Dg, Eg), reps),
+                "bcr_factor_ms": cuda_ms(
+                    lambda: plain.bcr_factor(Dg, Eg, cuda_banded.banded_factor), reps),
+                "inv_factor_ms": cuda_ms(
+                    lambda: plain.block_tridiag_factor_part_inv(Dg, Eg), reps),
+                "part_solve_ms": cuda_ms(lambda: cuda_banded.banded_solve_part(fp, b1), reps),
+                "bcr_solve_ms": cuda_ms(
+                    lambda: plain.bcr_solve(fb, b1, cuda_banded.banded_solve), reps),
+                "inv_solve_ms": cuda_ms(lambda: plain.block_tridiag_solve_part_inv(fi, b1), reps),
+            }
+            rows.append(row)
+            print(f"factor variants timed (4, {K}, {w}): factor partitioned "
+                  f"{row['part_factor_ms']:.3f} ms, BCR {row['bcr_factor_ms']:.3f}, inverse "
+                  f"{row['inv_factor_ms']:.3f}; solve (B=1) partitioned {row['part_solve_ms']:.3f}"
+                  f", BCR {row['bcr_solve_ms']:.3f}, inverse {row['inv_solve_ms']:.3f}", flush=True)
+            del Dg, Eg, bg, b1, fp, fb, fi
+    torch.cuda.empty_cache()
+    return rows
+
+
+def variant_solves(default_iterations: int) -> dict:
+    """Phase 17 (c): the flywheel IPM at N=5000 on a fresh problem under
+    each opt-in variable, solved once and then once timed from the zero
+    guess, as phase 6 does; SUCCESS, the JAX package's iterations within
+    2, the numpy oracle with the misses of the JAX package's solution
+    (VARIANT_FLYWHEEL_JAX) and no other, and the factor through the
+    selected form only."""
+    from sleipnir_tpu_torch import ExitStatus
+    from sleipnir_tpu_torch.models import flywheel
+    from sleipnir_tpu_torch.ops import cuda_banded
+
+    out = {}
+    for form, name in VARIANT_VARIABLES.items():
+        os.environ[name] = "1"
+        try:
+            fly, FX, FU = flywheel.flywheel_problem(N=FLYWHEEL_N, total_time=TOTAL_TIME)
+            cuda_banded.reset_counters()
+            reset_graph_counts()
+            t0 = time.monotonic()
+            first = fly.solve(device="cuda")
+            torch.cuda.synchronize()
+            first_s = time.monotonic() - t0
+            FX.set_value(np.zeros((1, FLYWHEEL_N + 1)))
+            FU.set_value(np.zeros((1, FLYWHEEL_N + 1)))
+            reset_graph_counts()
+            t0 = time.monotonic()
+            status = fly.solve(device="cuda")
+            torch.cuda.synchronize()
+            solve_s = time.monotonic() - t0
+        finally:
+            del os.environ[name]
+        backends = [v[-1] for k, v in fly._solver_cache.items() if k[0] == "ipm"]
+        launches, part, _ = path_counts()
+        stats = fly.last_solve_stats
+        failures = flywheel.oracle_failures(FX.value(), FU.value(), TOTAL_TIME)
+        jax_iterations, jax_misses = VARIANT_FLYWHEEL_JAX[form]
+        Uv = FU.value().reshape(-1)
+        misses_equal = ([f.split(" = ")[0] for f in failures] == [f"u_{k}" for k in jax_misses]
+                        and all("at steady state" in f for f in failures)
+                        and all(abs(Uv[k] - u) <= 1e-6 for k, u in jax_misses.items()))
+        entry = {"status": str(status), "first_status": str(first), "iterations": stats.iterations,
+                 "jax_iterations": jax_iterations, "oracle_misses": failures,
+                 "default_iterations": default_iterations, "first_solve_s": first_s,
+                 "solve_s": solve_s, "ms_per_iteration": solve_s * 1e3 / max(stats.iterations, 1),
+                 "host_syncs_per_iteration": stats.host_syncs_per_iteration,
+                 "launches": {",".join(map(str, k)): n for k, n in launches.items()}}
+        out[form] = entry
+        print(f"flywheel N={FLYWHEEL_N} under {name}=1: first solve {first} in {first_s:.2f} s, "
+              f"timed solve {status}, {stats.iterations} iterations (default {default_iterations},"
+              f" the JAX package {jax_iterations}), {solve_s:.2f} s "
+              f"({entry['ms_per_iteration']:.1f} ms/iteration), host syncs/iteration "
+              f"{stats.host_syncs_per_iteration:.2f}, K1/K2 launches {entry['launches']}, oracle "
+              f"misses {failures} (the JAX package's: {jax_misses}), {graph_note()}", flush=True)
+        if status != ExitStatus.SUCCESS or first != ExitStatus.SUCCESS:
+            fail("factor variants", f"flywheel under {name}: {first}, then {status}")
+        if abs(stats.iterations - jax_iterations) > 2:
+            fail("factor variants", f"flywheel under {name}: {stats.iterations} iterations, the "
+                 f"JAX package {jax_iterations}")
+        if not misses_equal:
+            fail("factor variants", f"flywheel under {name}: oracle misses {failures[:5]}, the "
+                 f"JAX package's {jax_misses}")
+        if [(b.use_bcr, b.use_inv) for b in backends] != [(form == "bcr", form == "inv")] or part:
+            fail("factor variants", f"flywheel under {name} did not take that form: "
+                 f"{[(b.use_bcr, b.use_inv) for b in backends]}, partitioned calls {part}")
+        if form == "bcr" and not (launches and {K for _k, _b, K, _w in launches} == {2}):
+            fail("factor variants", f"BCR's K1/K2 launches are not its coarsest system's: "
+                 f"{launches}")
+        if form == "inv" and launches:
+            fail("factor variants", f"the explicit inverse launched K1/K2: {launches}")
+    return out
 
 
 def main() -> None:
@@ -2141,6 +2422,11 @@ def main() -> None:
     t_phase = time.monotonic()
     part_kernels = partitioned_phase()
     print(f"partitioned and time axis phase: {time.monotonic() - t_phase:.1f} s", flush=True)
+
+    # -- 17. the opt-in factor forms and cart-pole's DSL dynamics ---------
+    t_phase = time.monotonic()
+    variants_phase(path_iterations)
+    print(f"factor variants phase: {time.monotonic() - t_phase:.1f} s", flush=True)
 
     # -- results ----------------------------------------------------------
     path_shapes = (collections.Counter(fly_shapes) + collections.Counter(fr_shapes)

@@ -16,6 +16,8 @@ import math
 import numpy as np
 import torch
 
+from sleipnir_tpu_torch.autodiff import block, cos, sin, solve
+from sleipnir_tpu_torch.autodiff.variable import VariableMatrix
 from sleipnir_tpu_torch.ops import accurate_math
 from sleipnir_tpu_torch.optimization.ocp import (
     OCP,
@@ -60,14 +62,35 @@ def dynamics(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     return torch.stack([xdot, thetadot, qddot0, qddot1]).reshape(4, 1)
 
 
+def dynamics_dsl(x, u) -> VariableMatrix:
+    """The same dynamics written against the Variable DSL (reference
+    cart_pole_util.hpp dynamics_variable): runs on the DSL only, so the
+    OCP takes its symbolic path."""
+    theta = x[1, 0]
+    thetadot = x[3, 0]
+    c = cos(theta)
+    s = sin(theta)
+
+    M = block([[M_C + M_P, M_P * L * c], [M_P * L * c, M_P * L * L]])
+    qdot = x[2:4, :]
+    C = block([[0.0, -M_P * L * thetadot * s], [0.0, 0.0]])
+    tau_g = block([[0.0], [-M_P * G * L * s]])
+    B = np.array([[1.0], [0.0]])
+    qddot = solve(M, tau_g - C @ qdot + B @ VariableMatrix(u))
+    return block([[qdot], [qddot]])
+
+
 def cart_pole_problem(
     N: int = 100,
     total_time: float = 5.0,
     u_max: float = 20.0,
     d_max: float = 2.0,
+    fast: bool = True,
 ):
     """Build the cart-pole swing-up OCP (reference
-    cart_pole_problem_test.cpp:34-88). Returns (problem, X, U)."""
+    cart_pole_problem_test.cpp:34-88). Returns (problem, X, U).
+    `fast=True` uses the tensor dynamics, which the OCP vmaps over the
+    horizon; `fast=False` the DSL dynamics, on the symbolic path."""
     dt = total_time / N
     x_initial = np.array([[0.0], [0.0], [0.0], [0.0]])
     x_final = np.array([[1.0], [math.pi], [0.0], [0.0]])
@@ -77,7 +100,7 @@ def cart_pole_problem(
         1,
         dt,
         N,
-        dynamics,
+        dynamics if fast else dynamics_dsl,
         DynamicsType.EXPLICIT_ODE,
         TimestepMethod.FIXED,
         TranscriptionMethod.DIRECT_TRANSCRIPTION,

@@ -35,6 +35,7 @@ from sleipnir_tpu_torch.autodiff.variable import (
     VariableBlock,
     VariableMatrix,
 )
+from sleipnir_tpu_torch.optimization.solver import kkt_banded
 from sleipnir_tpu_torch.optimization.solver.exit_status import ExitStatus
 from sleipnir_tpu_torch.optimization.solver.funcs import (
     IPMFunctions,
@@ -460,9 +461,12 @@ class Problem:
         return grad(f_raw), hessian(f_raw), jacfwd(ce_raw), jacfwd(ci_raw), hessian(lag_c)
 
     def _cache_key(self, kind: str, options: Options, device: torch.device):
+        # The banded factor's form is read from the environment when the
+        # backend is built, so a change of it builds a new solver.
         return (
             kind, self._structure_version, options.tolerance,
             options.max_iterations, options.feasible_ipm, options.dtype, str(device),
+            kkt_banded.factor_form(),
         )
 
     @staticmethod

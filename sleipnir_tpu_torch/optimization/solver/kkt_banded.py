@@ -1,9 +1,9 @@
 """Block-tridiagonal (banded) KKT backend for direct-transcription OCPs.
 
 Port of `sleipnir_tpu/optimization/solver/kkt_banded.py`, its device
-mesh on the time axis and its partitioned factor included; the TPU's
-Pallas path is the kernels below, and its opt-in explicit-inverse and
-cyclic-reduction variants are not ported.
+mesh on the time axis, its partitioned factor and its opt-in
+explicit-inverse and cyclic-reduction factors included; the TPU's Pallas
+path is the kernels below.
 
 Variables are ordered by stage zₖ = (xₖ, uₖ); equality rows are assigned
 to the stage they are anchored at, padded to a uniform count per stage
@@ -15,6 +15,9 @@ K stages (K1), or, on the card from K = 256 stages, in the partitioned
 form, whose sequential depth is about 2·√K (`use_partitioned`). With a
 time-axis mesh (`Problem.set_time_axis_mesh`) the factor and the solves
 split the horizon over the mesh's devices (`parallel/time_axis.py`).
+SLEIPNIR_TPU_BCR and SLEIPNIR_TPU_INV select, as in the JAX package,
+block cyclic reduction (`use_bcr`) or the explicit-inverse partitioned
+factor (`use_inv`) on any device; neither is a default.
 
 Derivatives are never materialized densely. Banded blocks are extracted
 with *colored* probes, all vmapped with `torch.func.vmap` on every device:
@@ -32,6 +35,7 @@ system still factors in O(N·w³).
 
 from __future__ import annotations
 
+import os
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -40,8 +44,19 @@ from torch.func import grad, jvp, vmap
 
 from sleipnir_tpu_torch.ops import cuda_banded
 from sleipnir_tpu_torch.ops.block_tridiag import (
+    BCRFactor,
     BlockTridiagFactor,
+    BlockTridiagFactorInv,
+    PartitionedFactorInv,
+    bcr_factor,
+    bcr_inertia,
+    bcr_pivots,
+    bcr_solve,
+    block_tridiag_factor_part_inv,
     block_tridiag_inertia,
+    block_tridiag_solve_part_inv,
+    inv_part_inertia,
+    inv_part_pivots,
     part_inertia,
     part_pivots,
 )
@@ -68,6 +83,37 @@ SMALL_PIVOT = 1e-4
 #: the JAX package's rule for an accelerator that is not a TPU
 #: (sleipnir_tpu/optimization/solver/kkt_banded.py:263-280), as it stands.
 PARTITIONED_MIN_STAGES = 256
+
+
+def _env_opt_in(name: str) -> bool:
+    """The JAX package's reading of an opt-in variable: unset or "0" is
+    off, anything else on."""
+    value = os.environ.get(name)
+    return value is not None and value != "0"
+
+
+def _use_inv() -> bool:
+    """SLEIPNIR_TPU_INV: the explicit-inverse (substitution-free) factor.
+
+    Off by default, as in the JAX package (kkt_banded.py:187-202): explicit
+    inverses are only forward-stable, and the Schur-complement chain of a
+    mid-solve interior-point KKT system passes through blocks with cond
+    ~1e9-1e10, where a forward-error block inverse corrupts every later
+    Schur complement (residual 1e15 against the pivoted chain's 0.1,
+    docs/tpu_numerics.md:144-155). It is for well-conditioned systems."""
+    return _env_opt_in("SLEIPNIR_TPU_INV")
+
+
+def _use_bcr() -> bool:
+    """SLEIPNIR_TPU_BCR: block cyclic reduction, the depth-log(K) factor.
+    Off by default, as in the JAX package (kkt_banded.py:205-220)."""
+    return _env_opt_in("SLEIPNIR_TPU_BCR")
+
+
+def factor_form() -> str:
+    """The factor form the opt-in variables select for a backend built
+    now without a mesh: "bcr", "inv" or "default"."""
+    return "bcr" if _use_bcr() else "inv" if _use_inv() else "default"
 
 
 def _equilibrate(D: torch.Tensor, E: torch.Tensor, rounds: int = 2):
@@ -136,7 +182,9 @@ class BandedDerivs(NamedTuple):
 
 class BandedFactor(NamedTuple):
     #: Factor of S M S, batch axis of size 1: a BlockTridiagFactor, a
-    #: PartitionedFactor or, with a mesh, a time_axis.ShardedFactor.
+    #: PartitionedFactor, a BCRFactor, an explicit-inverse factor
+    #: (BlockTridiagFactorInv or PartitionedFactorInv) or, with a mesh, a
+    #: time_axis.ShardedFactor.
     fac: object
     #: Ruiz scale (K, w): solves are x = S · solve(fac, S · b).
     s: torch.Tensor
@@ -179,9 +227,14 @@ class BandedBackend:
         self.device = device
         #: An optional `time_axis.Mesh`: the factor and the solves split
         #: the stage (time) axis over its devices. It takes precedence over
-        #: the partitioned form, as in the JAX package.
+        #: every other form, as in the JAX package.
         self.mesh = mesh
         self.mesh_axis = mesh_axis
+        #: The opt-in forms, read once here. The JAX package's precedence:
+        #: the mesh, BCR, the explicit inverse, the partitioned form, the
+        #: chain.
+        self.use_bcr = mesh is None and _use_bcr()
+        self.use_inv = mesh is None and not self.use_bcr and _use_inv()
         #: The partitioned factor replaces K1's K-deep chain on the card at
         #: long horizons; the CPU keeps the chain. Tests set it after
         #: __init__ to run the partitioned form on the CPU.
@@ -473,7 +526,8 @@ class BandedBackend:
 
     def factor_candidates(self, D, E, deltas, gammas, border_schur):
         """Equilibrate and factor B assembled candidates, D (B, K, w, w)
-        and E (B, K-1, w, w), in one K1 launch, and count each one's
+        and E (B, K-1, w, w), in one call of the selected form (one K1
+        launch for the chain), and count each one's
         inertia. `border_schur(fac, s_eq)` gives the border's (X, L, d)
         when the problem has one. Returns ((fac, s_eq, X, Lb, db), pos,
         neg, zero, failed), each with the leading axis B."""
@@ -550,6 +604,12 @@ class BandedBackend:
             piv = torch.cat([p.to(self.device) for p in time_axis.sharded_pivots(fac)], dim=1)
             inertia = time_axis.sharded_inertia(fac, eps, K)
             return fac, tuple(t.to(self.device) for t in inertia), piv
+        if self.use_bcr:
+            fac = bcr_factor(Ds, Es, cuda_banded.banded_factor)
+            return fac, bcr_inertia(fac, eps, self.K), torch.cat(bcr_pivots(fac), dim=1)
+        if self.use_inv:
+            fac = block_tridiag_factor_part_inv(Ds, Es)
+            return fac, inv_part_inertia(fac, eps, self.K), torch.cat(inv_part_pivots(fac), dim=1)
         if self.use_partitioned:
             fac = cuda_banded.banded_factor_part(Ds, Es)
             return fac, part_inertia(fac, eps, self.K), torch.cat(part_pivots(fac), dim=1)
@@ -558,11 +618,15 @@ class BandedBackend:
 
     def chain_solve(self, fac, b: torch.Tensor) -> torch.Tensor:
         """Solve factored staged systems for b (B, K, w) or (B, K, w, r)
-        with a factor of `_chain_factor`."""
+        with a factor of `_chain_factor`, by the factor's form."""
         if self.mesh is not None:
             from sleipnir_tpu_torch.parallel import time_axis  # noqa: PLC0415
 
             return time_axis.sharded_solve(self.mesh, self.mesh_axis, fac, b)
+        if isinstance(fac, BCRFactor):
+            return bcr_solve(fac, b, cuda_banded.banded_solve)
+        if isinstance(fac, (BlockTridiagFactorInv, PartitionedFactorInv)):
+            return block_tridiag_solve_part_inv(fac, b)
         return cuda_banded.banded_solve_part(fac, b)
 
     def _scaled_solve(self, fac: BandedFactor, b: torch.Tensor) -> torch.Tensor:

@@ -1,12 +1,13 @@
-"""KKT error measures of the Newton, SQP and interior-point solvers from
-transpose products (port of the product-based variants of
-`sleipnir_tpu/optimization/solver/util/kkt_error.py`; reference
+"""KKT error measures of the Newton, SQP and interior-point solvers (port
+of `sleipnir_tpu/optimization/solver/util/kkt_error.py`; reference
 solver/util/kkt_error.hpp:30-251).
 
 Scaled ∞-norm errors follow equation (5) of Wächter-Biegler (s_d, s_c
-normalizers with s_max = 100); the 1-norm variant serves the line search's
+normalizers with s_max = 100); the 1-norm variants serve the line search's
 accept-if-KKT-error-reduced fallback. The banded backend never builds Aₑ
-or Aᵢ, so every function takes the products Aₑᵀy and Aᵢᵀz.
+or Aᵢ, so the solvers call the `_products` variants, which take the
+products Aₑᵀy and Aᵢᵀz; the others take the dense Jacobians, as the JAX
+package's do, and form the products for them.
 """
 
 from __future__ import annotations
@@ -28,12 +29,72 @@ def _clamp_low(v: torch.Tensor, low: float) -> torch.Tensor:
     return torch.clamp(v, min=low)
 
 
+def kkt_error_newton_inf(g):
+    return _inf_norm(g)
+
+
 def kkt_error_newton_one(g):
     return _one_norm(g)
 
 
+def kkt_error_sqp_inf(g, A_e, c_e, y):
+    if c_e.shape[0] == 0:
+        return _inf_norm(g)
+    s_d = _clamp_low(_one_norm(y) / c_e.shape[0], S_MAX) / S_MAX
+    return torch.maximum(_inf_norm(g - A_e.T @ y) / s_d, _inf_norm(c_e))
+
+
+def kkt_error_sqp_one(g, A_e, c_e, y):
+    return kkt_error_sqp_one_products(g, A_e.T @ y, c_e, y)
+
+
+def kkt_error_ipm_inf(g, A_e, c_e, A_i, c_i, s, y, z, mu):
+    return kkt_error_ipm_inf_products(g, A_e.T @ y, A_i.T @ z, c_e, c_i, s, y, z, mu)
+
+
+def kkt_error_ipm_one(g, A_e, c_e, A_i, c_i, s, y, z, mu):
+    return kkt_error_ipm_one_products(g, A_e.T @ y, A_i.T @ z, c_e, c_i, s, y, z, mu)
+
+
+# -- Unscaled variants (un-apply the problem scaling before measuring:
+#    reference kkt_error.hpp:155-251) --------------------------------------
+
+
 def unscaled_kkt_error_newton(scaling, g):
-    return _inf_norm(g / scaling.f)
+    return kkt_error_newton_inf(g / scaling.f)
+
+
+def unscaled_kkt_error_sqp(scaling, g, A_e, c_e, y):
+    if c_e.shape[0] == 0:
+        return unscaled_kkt_error_newton(scaling, g)
+    inv_d_f = 1.0 / scaling.f
+    inv_d_c_e = 1.0 / scaling.c_e
+    return kkt_error_sqp_inf(
+        inv_d_f * g,
+        inv_d_c_e[:, None] * A_e,
+        inv_d_c_e * c_e,
+        scaling.c_e * y * inv_d_f,
+    )
+
+
+def unscaled_kkt_error_ipm(scaling, g, A_e, c_e, A_i, c_i, s, y, z, mu):
+    inv_d_f = 1.0 / scaling.f
+    inv_d_c_e = 1.0 / scaling.c_e
+    inv_d_c_i = 1.0 / scaling.c_i
+    return kkt_error_ipm_inf(
+        inv_d_f * g,
+        inv_d_c_e[:, None] * A_e if c_e.shape[0] > 0 else A_e,
+        inv_d_c_e * c_e,
+        inv_d_c_i[:, None] * A_i if c_i.shape[0] > 0 else A_i,
+        inv_d_c_i * c_i,
+        inv_d_c_i * s,
+        scaling.c_e * y * inv_d_f,
+        scaling.c_i * z * inv_d_f,
+        inv_d_f * mu,
+    )
+
+
+# -- Product-based variants ------------------------------------------------
 
 
 def kkt_error_sqp_one_products(g, AeT_y, c_e, y):

@@ -452,3 +452,31 @@ def test_f32_kernels_match_twin_at_long_horizons(cuda_device, B, K, w):
     D, E, b = _f32_system(B, K, w)
     Dg, Eg, bg = banded_system_from_numpy(D, E, b, cuda_device, torch.float32)
     _assert_f32_match(cuda_banded.banded_factor(Dg, Eg), tbt.block_tridiag_factor(Dg, Eg), bg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,K,w", [(4, 101, 13), (4, 5001, 4), (4, 2001, 37)])
+def test_bcr_and_explicit_inverse_on_card_match_the_cpu(cuda_device, B, K, w):
+    """Block cyclic reduction (its coarsest two blocks on K1/K2) and the
+    explicit-inverse partitioned factor on CUDA tensors against the same
+    functions on CPU tensors, on well-conditioned stages: inertia equal,
+    solutions to 1e-10 for BCR and 1e-9 for the inverse."""
+    D, E, b = _conditioned_system(np.random.default_rng(B * K + w + 12), B, K, w)
+    Dc, Ec, bc = banded_system_from_numpy(D, E, b, torch.device("cpu"))
+    Dg, Eg, bg = banded_system_from_numpy(D, E, b, cuda_device)
+    cuda_banded.reset_counters()
+    fg = tbt.bcr_factor(Dg, Eg, cuda_banded.banded_factor)
+    xg = tbt.bcr_solve(fg, bg, cuda_banded.banded_solve)
+    torch.cuda.synchronize()
+    assert cuda_banded.LAUNCHES_BY_SHAPE == {("factor", B, 2, w): 1, ("solve", B, 2, w): 1}
+    fc = tbt.bcr_factor(Dc, Ec)
+    assert _rel(xg.cpu(), tbt.bcr_solve(fc, bc)) <= 1e-10
+    assert ([t.tolist() for t in tbt.bcr_inertia(fg, EPS_INERTIA, K)]
+            == [t.tolist() for t in tbt.bcr_inertia(fc, EPS_INERTIA, K)])
+
+    fg = tbt.block_tridiag_factor_part_inv(Dg, Eg)
+    xg = tbt.block_tridiag_solve_part_inv(fg, bg)
+    fc = tbt.block_tridiag_factor_part_inv(Dc, Ec)
+    assert _rel(xg.cpu(), tbt.block_tridiag_solve_part_inv(fc, bc)) <= 1e-9
+    assert ([t.tolist() for t in tbt.inv_part_inertia(fg, EPS_INERTIA, K)]
+            == [t.tolist() for t in tbt.inv_part_inertia(fc, EPS_INERTIA, K)])
