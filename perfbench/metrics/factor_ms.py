@@ -1,0 +1,9 @@
+"""factor_ms: device milliseconds per iteration of the operations
+launched inside the pb.factor spans of the profiled stretch."""
+
+
+def read(run):
+    t = run.trace
+    if t is None or not run.stretch_steps or "factor" not in t.span_s:
+        return None
+    return 1e3 * t.span_s["factor"] / run.stretch_steps
