@@ -59,12 +59,13 @@ from sleipnir_tpu_torch.optimization.solver.util.bounds import (
     get_bounds_rows,
     project_onto_bounds,
 )
+from sleipnir_tpu_torch.optimization.solver.util import cuda_graph
 from sleipnir_tpu_torch.optimization.solver.util.host_sync import HostSyncs
 from sleipnir_tpu_torch.optimization.solver.util.problem_scaling import (
     ProblemScaling,
 )
 from sleipnir_tpu_torch.util import print_diagnostics
-from sleipnir_tpu_torch.util.profiler import SetupProfiler, SolveProfiler
+from sleipnir_tpu_torch.util.profiler import SetupProfiler, SolveProfiler, span
 from sleipnir_tpu_torch.util.spy import Spy
 
 
@@ -217,11 +218,29 @@ class _SpyCallback:
 
 
 class SolveStats:
-    """What the last solve counted: iterations and device-to-host reads."""
+    """What the last solve counted: iterations, device-to-host reads, and
+    the CUDA graphs it captured with the seconds the captures took (from
+    the process-wide `cuda_graph` counters, so a capture by another thread
+    meanwhile counts too)."""
 
-    def __init__(self, iterations: int, host_syncs: int) -> None:
+    def __init__(self, iterations: int, host_syncs: int, graph_captures: int = 0,
+                 capture_s: float = 0.0) -> None:
         self.iterations = iterations
         self.host_syncs = host_syncs
+        self.graph_captures = graph_captures
+        self.capture_s = capture_s
+
+    @staticmethod
+    def counters(*syncs: HostSyncs) -> tuple:
+        """The running counts a solve's stats are differences of: the host
+        reads of `syncs`, the graph captures and their seconds."""
+        return sum(s.count for s in syncs), cuda_graph.CAPTURES, cuda_graph.CAPTURE_SECONDS
+
+    @classmethod
+    def since(cls, iterations: int, before: tuple, *syncs: HostSyncs) -> "SolveStats":
+        """The stats of a solve of `iterations` that began at the counts `before`."""
+        now = cls.counters(*syncs)
+        return cls(iterations, *(a - b for a, b in zip(now, before)))
 
     @property
     def host_syncs_per_iteration(self) -> float:
@@ -244,7 +263,7 @@ class Problem:
         #: bounds (reference SLEIPNIR_ENABLE_BOUND_PROJECTION).
         self.enable_bound_projection = False
         self._last_state = None
-        #: Iterations and host syncs of the last interior-point solve.
+        #: What the last solve (or batched solve) counted.
         self.last_solve_stats: SolveStats | None = None
         self._time_mesh = None  # (Mesh, axis name): see set_time_axis_mesh
 
@@ -432,7 +451,8 @@ class Problem:
             kind, solve = "Newton", self._solve_newton
         if options.diagnostics:
             print(f"\nInvoking {kind} solver\n")
-        status, final_x = solve(comp, x0, params, options, start_time, spy)
+        with span("slp.solve"):
+            status, final_x = solve(comp, x0, params, options, start_time, spy)
         if options.diagnostics:
             print(f"\nExit: {status}")
 
@@ -486,9 +506,9 @@ class Problem:
             backend = DenseBackend(comp["n"], me, mi, device, syncs, dtype)
         return backend
 
-    def _record(self, state, backend, syncs_before: int) -> tuple:
+    def _record(self, state, backend, before: tuple) -> tuple:
         self._last_state = state
-        self.last_solve_stats = SolveStats(state.iterations, backend.syncs.count - syncs_before)
+        self.last_solve_stats = SolveStats.since(state.iterations, before, backend.syncs)
         return ExitStatus(state.status), state.x.cpu().numpy()
 
     # -- Newton (no constraints) -------------------------------------------
@@ -514,7 +534,7 @@ class Problem:
             init, step = make_newton(funcs, options, backend=backend)
             cached = self._solver_cache[key] = (init, step, g_fn, backend)
         init, step, g_fn, backend = cached
-        syncs_before = backend.syncs.count
+        before = SolveStats.counters(backend.syncs)
 
         def on_device(a):
             return torch.as_tensor(a, dtype=dtype, device=device)
@@ -535,7 +555,7 @@ class Problem:
             profilers=prof.solve,
         )
         prof.report()
-        return self._record(state, backend, syncs_before)
+        return self._record(state, backend, before)
 
     @staticmethod
     def _newton_info(state, backend) -> IterationInfo:
@@ -579,7 +599,7 @@ class Problem:
         prof = _DiagProfilers(options.diagnostics)
         device = resolve_device(options.device)
         init, step, resume, funcs, g_fn, backend = self._prepare_sqp(comp, options, device)
-        syncs_before = backend.syncs.count
+        before = SolveStats.counters(backend.syncs)
         n, me = comp["n"], comp["me"]
         dtype = backend.dtype
 
@@ -636,7 +656,7 @@ class Problem:
             if spy_cb is not None:
                 spy_cb.close()
         prof.report()
-        return self._record(state, backend, syncs_before)
+        return self._record(state, backend, before)
 
     @staticmethod
     def _sqp_info(state, backend) -> IterationInfo:
@@ -742,7 +762,7 @@ class Problem:
         with prof.phase("compile solver"):
             bundle = self._prepare_ipm(comp, options, device)
         init, step, resume, funcs, g_fn, backend = bundle
-        syncs_before = backend.syncs.count
+        before = SolveStats.counters(backend.syncs)
         banded = isinstance(backend, BandedBackend)
 
         def on_device(a):
@@ -815,7 +835,7 @@ class Problem:
             if spy_cb is not None:
                 spy_cb.close()
         prof.report()
-        return self._record(state, backend, syncs_before)
+        return self._record(state, backend, before)
 
     @staticmethod
     def _ipm_info(state, backend) -> IterationInfo:

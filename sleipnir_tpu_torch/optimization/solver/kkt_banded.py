@@ -68,6 +68,7 @@ from sleipnir_tpu_torch.optimization.solver.kkt_backend import (
 )
 from sleipnir_tpu_torch.optimization.solver.util.cuda_graph import Graphs
 from sleipnir_tpu_torch.optimization.solver.util.host_sync import HostSyncs
+from sleipnir_tpu_torch.util.profiler import span
 
 #: Pivot zero-threshold for inertia on the EQUILIBRATED system in float64,
 #: whose legitimate pivots are O(1): anything below eps^0.75 (~1e-12)
@@ -506,8 +507,6 @@ class BandedBackend:
         return D, E
 
     def factor(self, d: BandedDerivs, sigma, prev_delta, gamma_min) -> BandedFactor:
-        col0, e0 = self._assemble_border(d, sigma)
-
         def factor_with(deltas, gammas):
             D, E = self.assemble_staged(d, sigma, deltas, gammas)
             return self.factor_candidates(
@@ -515,9 +514,11 @@ class BandedBackend:
                 lambda fac, s_eq: self._border_schur(d, sigma, fac, s_eq, col0, e0, deltas, gammas),
             )
 
-        out: RegLoopResult = regularization_loop(
-            factor_with, self.n, self.K * self.p, prev_delta, gamma_min, self.syncs
-        )
+        with span("slp.factor"):
+            col0, e0 = self._assemble_border(d, sigma)
+            out: RegLoopResult = regularization_loop(
+                factor_with, self.n, self.K * self.p, prev_delta, gamma_min, self.syncs
+            )
         fac, s_eq, X, Lb, db = out.fac
         return BandedFactor(
             fac=fac, s=s_eq[0], col=col0, Xcols=X[0], e0=e0, Sb_L=Lb[0], Sb_d=db[0],
@@ -595,39 +596,42 @@ class BandedBackend:
         """Factor B equilibrated staged systems, Ds (B, K, w, w) and Es
         (B, K-1, w, w), in the selected form. Returns (fac, (pos, neg,
         zero), pivots (B, ·)), the counts per system."""
-        eps = self.eps_inertia
-        if self.mesh is not None:
-            from sleipnir_tpu_torch.parallel import time_axis  # noqa: PLC0415
+        with span("slp.kkt_factor", *Ds.shape[:3], Ds.dtype):
+            eps = self.eps_inertia
+            if self.mesh is not None:
+                from sleipnir_tpu_torch.parallel import time_axis  # noqa: PLC0415
 
-            Dp, Ep, _b, K = time_axis.pad_to_devices(Ds, Es, None, self.mesh.size)
-            fac = time_axis.sharded_factor(self.mesh, self.mesh_axis, Dp, Ep)
-            piv = torch.cat([p.to(self.device) for p in time_axis.sharded_pivots(fac)], dim=1)
-            inertia = time_axis.sharded_inertia(fac, eps, K)
-            return fac, tuple(t.to(self.device) for t in inertia), piv
-        if self.use_bcr:
-            fac = bcr_factor(Ds, Es, cuda_banded.banded_factor)
-            return fac, bcr_inertia(fac, eps, self.K), torch.cat(bcr_pivots(fac), dim=1)
-        if self.use_inv:
-            fac = block_tridiag_factor_part_inv(Ds, Es)
-            return fac, inv_part_inertia(fac, eps, self.K), torch.cat(inv_part_pivots(fac), dim=1)
-        if self.use_partitioned:
-            fac = cuda_banded.banded_factor_part(Ds, Es)
-            return fac, part_inertia(fac, eps, self.K), torch.cat(part_pivots(fac), dim=1)
-        fac = cuda_banded.banded_factor(Ds, Es)
-        return fac, block_tridiag_inertia(fac, eps), fac.d.flatten(1)
+                Dp, Ep, _b, K = time_axis.pad_to_devices(Ds, Es, None, self.mesh.size)
+                fac = time_axis.sharded_factor(self.mesh, self.mesh_axis, Dp, Ep)
+                piv = torch.cat([p.to(self.device) for p in time_axis.sharded_pivots(fac)], dim=1)
+                inertia = time_axis.sharded_inertia(fac, eps, K)
+                return fac, tuple(t.to(self.device) for t in inertia), piv
+            if self.use_bcr:
+                fac = bcr_factor(Ds, Es, cuda_banded.banded_factor)
+                return fac, bcr_inertia(fac, eps, self.K), torch.cat(bcr_pivots(fac), dim=1)
+            if self.use_inv:
+                fac = block_tridiag_factor_part_inv(Ds, Es)
+                pivots = torch.cat(inv_part_pivots(fac), dim=1)
+                return fac, inv_part_inertia(fac, eps, self.K), pivots
+            if self.use_partitioned:
+                fac = cuda_banded.banded_factor_part(Ds, Es)
+                return fac, part_inertia(fac, eps, self.K), torch.cat(part_pivots(fac), dim=1)
+            fac = cuda_banded.banded_factor(Ds, Es)
+            return fac, block_tridiag_inertia(fac, eps), fac.d.flatten(1)
 
     def chain_solve(self, fac, b: torch.Tensor) -> torch.Tensor:
         """Solve factored staged systems for b (B, K, w) or (B, K, w, r)
         with a factor of `_chain_factor`, by the factor's form."""
-        if self.mesh is not None:
-            from sleipnir_tpu_torch.parallel import time_axis  # noqa: PLC0415
+        with span("slp.kkt_solve", *b.shape[:3], b.shape[3] if b.dim() == 4 else 1, b.dtype):
+            if self.mesh is not None:
+                from sleipnir_tpu_torch.parallel import time_axis  # noqa: PLC0415
 
-            return time_axis.sharded_solve(self.mesh, self.mesh_axis, fac, b)
-        if isinstance(fac, BCRFactor):
-            return bcr_solve(fac, b, cuda_banded.banded_solve)
-        if isinstance(fac, (BlockTridiagFactorInv, PartitionedFactorInv)):
-            return block_tridiag_solve_part_inv(fac, b)
-        return cuda_banded.banded_solve_part(fac, b)
+                return time_axis.sharded_solve(self.mesh, self.mesh_axis, fac, b)
+            if isinstance(fac, BCRFactor):
+                return bcr_solve(fac, b, cuda_banded.banded_solve)
+            if isinstance(fac, (BlockTridiagFactorInv, PartitionedFactorInv)):
+                return block_tridiag_solve_part_inv(fac, b)
+            return cuda_banded.banded_solve_part(fac, b)
 
     def _scaled_solve(self, fac: BandedFactor, b: torch.Tensor) -> torch.Tensor:
         """Solve the regularized staged system for b (K, w)."""
@@ -703,18 +707,19 @@ class BandedBackend:
         the exact KKT matvec, border included: the stage-ordered
         elimination needs it for backward stability. Three solves per
         call in all."""
-        b, b_b = self._staged_rhs(rhs_top, rhs_bottom)
-        sol, v_b = self._bordered_solve(fac, b, b_b)
-        for _ in range(iterations):
-            r = b - self._kkt_matvec_staged(d, sigma, fac.delta, fac.gamma, sol)
-            r_b = b_b
-            if self.nb > 0:
-                r = r - torch.einsum("bkw,b->kw", fac.col, v_b)
-                r_b = (b_b - torch.einsum("bkw,kw->b", fac.col, sol) - fac.e0 @ v_b
-                       - fac.delta * v_b)
-            du, dv = self._bordered_solve(fac, r, r_b)
-            sol, v_b = sol + du, v_b + dv
-        return self._unpack_solution(sol, v_b)
+        with span("slp.solve_refined"):
+            b, b_b = self._staged_rhs(rhs_top, rhs_bottom)
+            sol, v_b = self._bordered_solve(fac, b, b_b)
+            for _ in range(iterations):
+                r = b - self._kkt_matvec_staged(d, sigma, fac.delta, fac.gamma, sol)
+                r_b = b_b
+                if self.nb > 0:
+                    r = r - torch.einsum("bkw,b->kw", fac.col, v_b)
+                    r_b = (b_b - torch.einsum("bkw,kw->b", fac.col, sol) - fac.e0 @ v_b
+                           - fac.delta * v_b)
+                du, dv = self._bordered_solve(fac, r, r_b)
+                sol, v_b = sol + du, v_b + dv
+            return self._unpack_solution(sol, v_b)
 
     # -- observability -----------------------------------------------------
 

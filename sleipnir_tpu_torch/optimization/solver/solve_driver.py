@@ -21,6 +21,7 @@ from typing import Callable, Sequence
 from sleipnir_tpu_torch.optimization.solver import status_codes
 from sleipnir_tpu_torch.optimization.solver.exit_status import ExitStatus
 from sleipnir_tpu_torch.optimization.solver.options import Options
+from sleipnir_tpu_torch.util.profiler import span
 
 
 def run_solver(
@@ -70,7 +71,8 @@ def run_solver(
             prev = state
             if profilers is not None:
                 profilers["iterate"].start()
-            state = step(state)
+            with span("slp.iteration"):
+                state = step(state)
             if profilers is not None:
                 profilers["iterate"].stop()
             if options.diagnostics and diagnostics_fn is not None:

@@ -44,6 +44,8 @@ from typing import Callable
 import torch
 from torch.utils import _pytree as pytree
 
+from sleipnir_tpu_torch.util.profiler import span
+
 #: Graph captures and replays, and the seconds captures took (the eager
 #: warm-up included), since the counters were last reset.
 CAPTURES = 0
@@ -114,6 +116,8 @@ class Graphed:
         self.graphs = graphs
         self.name = name
         self._entries: dict = {}
+        self._replay_span = "slp.graph_replay|" + name
+        self._capture_span = "slp.graph_capture|" + name
 
     def __call__(self, *args):
         global REPLAYS
@@ -128,18 +132,19 @@ class Graphed:
         entry = self._entries.get(key)
         if entry is None:
             return self._capture(key, leaves, spec)
-        for dst, src in zip(entry.inputs, leaves):
-            if isinstance(src, torch.Tensor):
-                dst.copy_(src)
-        entry.graph.replay()
-        REPLAYS += 1
-        return pytree.tree_unflatten(
-            [t.clone() if isinstance(t, torch.Tensor) else t for t in entry.outputs],
-            entry.out_spec,
-        )
+        with span(self._replay_span):
+            for dst, src in zip(entry.inputs, leaves):
+                if isinstance(src, torch.Tensor):
+                    dst.copy_(src)
+            entry.graph.replay()
+            REPLAYS += 1
+            return pytree.tree_unflatten(
+                [t.clone() if isinstance(t, torch.Tensor) else t for t in entry.outputs],
+                entry.out_spec,
+            )
 
     def _capture(self, key, leaves, spec):
-        with _CAPTURING:
+        with span(self._capture_span), _CAPTURING:
             return self._capture_locked(key, leaves, spec)
 
     def _capture_locked(self, key, leaves, spec):

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from sleipnir_tpu_torch.util.profiler import span
+
 
 class HostSyncs:
     """Reads device scalars for host-side branching and counts the reads."""
@@ -25,6 +27,7 @@ class HostSyncs:
         floats in argument order.
         """
         self.count += 1
-        if len(scalars) == 1:
-            return scalars[0].item()
-        return torch.stack([t.reshape(()).to(torch.float64) for t in scalars]).tolist()
+        with span("slp.host_read"):
+            if len(scalars) == 1:
+                return scalars[0].item()
+            return torch.stack([t.reshape(()).to(torch.float64) for t in scalars]).tolist()

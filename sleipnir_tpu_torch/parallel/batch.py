@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from sleipnir_tpu_torch.optimization.multistart import MultistartResult
+from sleipnir_tpu_torch.optimization.problem import SolveStats
 from sleipnir_tpu_torch.optimization.solver import status_codes
 from sleipnir_tpu_torch.optimization.solver.exit_status import ExitStatus
 from sleipnir_tpu_torch.optimization.solver.funcs import ScalingArrays
@@ -47,6 +48,7 @@ from sleipnir_tpu_torch.optimization.solver.options import Options
 from sleipnir_tpu_torch.optimization.solver.util.host_sync import HostSyncs
 from sleipnir_tpu_torch.parallel.lanes import make_lane_interior_point
 from sleipnir_tpu_torch.parallel.time_axis import Mesh
+from sleipnir_tpu_torch.util.profiler import span
 
 
 def default_mesh(num_devices: int | None = None, axis: str = "batch") -> Mesh:
@@ -124,7 +126,8 @@ def make_batched_runner(step, mesh=None, axis: str = "batch", *,
             if time.monotonic() - start > timeout:
                 timed_out = torch.where(running, int(ExitStatus.TIMEOUT), states.status)
                 return states._replace(status=timed_out)
-            states = step(states, running)
+            with span("slp.iteration"):
+                states = step(states, running)
 
     return run
 
@@ -172,17 +175,18 @@ def _start(problem, comp, bundle, initial_guesses, options):
     params = comp["compiled"].gather_params()
 
     starts, scalings, rows0 = [], [], None
-    for guess in initial_guesses:
-        x0 = np.asarray(guess, dtype=np.float64).ravel()
-        scaling, rows = problem.compute_ipm_scaling(comp, bundle, x0, params)
-        if isinstance(rows, tuple):
-            # The banded backend's per-row probes: one structure for all.
-            if rows0 is None:
-                rows0 = rows
-            elif rows[0].shape != rows0[0].shape or not np.array_equal(rows[1], rows0[1]):
-                raise ValueError("initial guesses give different inequality row structures")
-        starts.append(x0)
-        scalings.append(scaling)
+    with span("slp.lane_scaling"):
+        for guess in initial_guesses:
+            x0 = np.asarray(guess, dtype=np.float64).ravel()
+            scaling, rows = problem.compute_ipm_scaling(comp, bundle, x0, params)
+            if isinstance(rows, tuple):
+                # The banded backend's per-row probes: one structure for all.
+                if rows0 is None:
+                    rows0 = rows
+                elif rows[0].shape != rows0[0].shape or not np.array_equal(rows[1], rows0[1]):
+                    raise ValueError("initial guesses give different inequality row structures")
+            starts.append(x0)
+            scalings.append(scaling)
     L = len(starts)
     init, step = make_lane_interior_point(funcs, options, backend=backend)
     sc = ScalingArrays(
@@ -210,31 +214,46 @@ def solve_ipm_batched(
 
     Returns (statuses, costs, xs, final): numpy arrays with a leading lane
     axis, and the final lane-axis `IPMState`; with a mesh, the tuple of
-    the groups' final states, one per device."""
+    the groups' final states, one per device. `problem.last_solve_stats`
+    then holds the batched iterations (the most any lane took) and the
+    host reads of every group, with the graph captures."""
     if options is None:
         options = Options()
-    cap = max_iterations if max_iterations is not None else options.max_iterations
-    if mesh is None:
-        comp, bundle = problem.prepare_ipm(options)
-        states, step, syncs = _start(problem, comp, bundle, initial_guesses, options)
-        final = make_batched_runner(step, syncs=syncs, timeout=options.timeout)(states, cap)
-        return (final.status.cpu().numpy(), final.f.cpu().numpy(), final.x.cpu().numpy(), final)
-    if not isinstance(mesh, Mesh):
+    if mesh is not None and not isinstance(mesh, Mesh):
         raise TypeError(f"mesh must be a sleipnir_tpu_torch.parallel.Mesh, got {type(mesh)}")
-    guesses = list(initial_guesses)
+    cap = max_iterations if max_iterations is not None else options.max_iterations
+    with span("slp.solve"):
+        if mesh is None:
+            comp, bundle = problem.prepare_ipm(options)
+            before = SolveStats.counters(bundle[-1].syncs)
+            states, step, syncs = _start(problem, comp, bundle, initial_guesses, options)
+            final = make_batched_runner(step, syncs=syncs, timeout=options.timeout)(states, cap)
+            problem.last_solve_stats = SolveStats.since(
+                int(final.iterations.max()), before, syncs)
+            return (final.status.cpu().numpy(), final.f.cpu().numpy(), final.x.cpu().numpy(),
+                    final)
+        return _solve_on_mesh(problem, list(initial_guesses), options, mesh, cap)
+
+
+def _solve_on_mesh(problem, guesses: list, options: Options, mesh: Mesh, cap: int):
+    """`solve_ipm_batched` over the devices of a mesh."""
     lane_groups = _groups(len(guesses), mesh)
     comp = problem._compile()
     # Every group's solver and start are built here, one after another,
     # before the threads start: the problem compiles once, and each group
     # has its own backend and graphs, also where two share a device.
-    starts = []
+    starts, reads = [], 0
+    _, captures, capture_s = SolveStats.counters()
     for i, (lanes, device) in enumerate(zip(lane_groups, mesh.devices)):
         opts = dataclasses.replace(options, device=str(device))
         with _on(device):
             bundle = problem._prepare_ipm(comp, opts, device, lane_group=i)
+            reads += bundle[-1].syncs.count
             starts.append(_start(problem, comp, bundle, [guesses[j] for j in lanes], opts))
     states, steps, syncs = zip(*starts)
     final = make_batched_runner(steps, mesh, syncs=syncs, timeout=options.timeout)(states, cap)
+    problem.last_solve_stats = SolveStats.since(
+        max(int(f.iterations.max()) for f in final), (reads, captures, capture_s), *syncs)
     statuses, costs, xs = (
         np.concatenate([getattr(f, k).cpu().numpy() for f in final]) for k in ("status", "f", "x")
     )

@@ -93,6 +93,7 @@ from sleipnir_tpu_torch.optimization.solver.util.kkt_error import (
 from sleipnir_tpu_torch.optimization.solver.util.step_rules import (
     fraction_to_the_boundary,
 )
+from sleipnir_tpu_torch.util.profiler import span
 
 def merge(mask: torch.Tensor, new, old):
     """Per lane, `new` where `mask` (L,) holds, else `old`: tensors or
@@ -189,7 +190,6 @@ class _BandedLanes:
 
     def factor(self, d, sigma, prev_delta, gamma_min, need) -> BandedFactor:
         b = self.b
-        col0, e0 = vmap(b._assemble_border)(d, sigma)
 
         def factor_with(deltas, gammas):
             L, C = deltas.shape
@@ -202,9 +202,11 @@ class _BandedLanes:
             )
             return out, *(t.view(L, C) for t in (pos, neg, zero, failed))
 
-        (fac, s_eq, X, Lb, db), delta, gamma, ok = lane_regularization_loop(
-            factor_with, b.n, b.K * b.p, prev_delta, gamma_min, need, b.syncs
-        )
+        with span("slp.factor"):
+            col0, e0 = vmap(b._assemble_border)(d, sigma)
+            (fac, s_eq, X, Lb, db), delta, gamma, ok = lane_regularization_loop(
+                factor_with, b.n, b.K * b.p, prev_delta, gamma_min, need, b.syncs
+            )
         return BandedFactor(fac=fac, s=s_eq, col=col0, Xcols=X, e0=e0, Sb_L=Lb, Sb_d=db,
                             delta=delta, gamma=gamma, ok=ok)
 
@@ -249,18 +251,19 @@ class _BandedLanes:
     def solve_refined(self, d, sigma, fac: BandedFactor, rhs_top, rhs_bottom, iterations: int = 2):
         """`BandedBackend.solve_refined` for every lane at once."""
         b = self.b
-        rhs, rhs_b = vmap(b._staged_rhs)(rhs_top, rhs_bottom)
-        sol, v_b = self._bordered_solve(fac, rhs, rhs_b)
-        for _ in range(iterations):
-            r = rhs - vmap(b._kkt_matvec_staged)(d, sigma, fac.delta, fac.gamma, sol)
-            r_b = rhs_b
-            if b.nb > 0:
-                r = r - torch.einsum("lbkw,lb->lkw", fac.col, v_b)
-                r_b = (rhs_b - torch.einsum("lbkw,lkw->lb", fac.col, sol)
-                       - torch.einsum("lab,lb->la", fac.e0, v_b) - fac.delta[:, None] * v_b)
-            du, dv = self._bordered_solve(fac, r, r_b)
-            sol, v_b = sol + du, v_b + dv
-        return vmap(b._unpack_solution)(sol, v_b)
+        with span("slp.solve_refined"):
+            rhs, rhs_b = vmap(b._staged_rhs)(rhs_top, rhs_bottom)
+            sol, v_b = self._bordered_solve(fac, rhs, rhs_b)
+            for _ in range(iterations):
+                r = rhs - vmap(b._kkt_matvec_staged)(d, sigma, fac.delta, fac.gamma, sol)
+                r_b = rhs_b
+                if b.nb > 0:
+                    r = r - torch.einsum("lbkw,lb->lkw", fac.col, v_b)
+                    r_b = (rhs_b - torch.einsum("lbkw,lkw->lb", fac.col, sol)
+                           - torch.einsum("lab,lb->la", fac.e0, v_b) - fac.delta[:, None] * v_b)
+                du, dv = self._bordered_solve(fac, r, r_b)
+                sol, v_b = sol + du, v_b + dv
+            return vmap(b._unpack_solution)(sol, v_b)
 
 
 class _DenseLanes:
