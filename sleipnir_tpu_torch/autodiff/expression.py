@@ -625,9 +625,12 @@ class CompiledEval:
                  dtype: torch.dtype = torch.float64) -> None:
         # Keyed by the tensor's own device ("cuda:0" for "cuda"), which is
         # what an evaluation's tensors report when they look it up.
+        # The first tensor made for a key stays: a CUDA graph captured
+        # against it keeps reading its memory, so another solver bundle's
+        # `prepare` on the same device must not free it.
         dtype = _constant_dtype(array, dtype)
         t = torch.as_tensor(array, dtype=dtype, device=device)
-        self._device_cache[(key, t.device, dtype)] = t
+        self._device_cache.setdefault((key, t.device, dtype), t)
 
     def prepare(self, device: torch.device, dtype: torch.dtype = torch.float64) -> None:
         """Move every constant and index vector of the DAGs to `device`,

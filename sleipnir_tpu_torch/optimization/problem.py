@@ -221,14 +221,17 @@ class SolveStats:
     """What the last solve counted: iterations, device-to-host reads, and
     the CUDA graphs it captured with the seconds the captures took (from
     the process-wide `cuda_graph` counters, so a capture by another thread
-    meanwhile counts too)."""
+    meanwhile counts too). A batched solve also counts the lane steps it
+    built (`parallel/batch.py`): one per lane group whose bundle had
+    none yet, 0 where every group reused its step."""
 
     def __init__(self, iterations: int, host_syncs: int, graph_captures: int = 0,
-                 capture_s: float = 0.0) -> None:
+                 capture_s: float = 0.0, lane_steps_built: int = 0) -> None:
         self.iterations = iterations
         self.host_syncs = host_syncs
         self.graph_captures = graph_captures
         self.capture_s = capture_s
+        self.lane_steps_built = lane_steps_built
 
     @staticmethod
     def counters(*syncs: HostSyncs) -> tuple:
@@ -237,10 +240,12 @@ class SolveStats:
         return sum(s.count for s in syncs), cuda_graph.CAPTURES, cuda_graph.CAPTURE_SECONDS
 
     @classmethod
-    def since(cls, iterations: int, before: tuple, *syncs: HostSyncs) -> "SolveStats":
+    def since(cls, iterations: int, before: tuple, *syncs: HostSyncs,
+              lane_steps_built: int = 0) -> "SolveStats":
         """The stats of a solve of `iterations` that began at the counts `before`."""
         now = cls.counters(*syncs)
-        return cls(iterations, *(a - b for a, b in zip(now, before)))
+        return cls(iterations, *(a - b for a, b in zip(now, before)),
+                   lane_steps_built=lane_steps_built)
 
     @property
     def host_syncs_per_iteration(self) -> float:

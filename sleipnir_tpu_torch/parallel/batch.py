@@ -17,13 +17,24 @@ is native f64 and reaches the full tolerance.
 Over several devices (`mesh=`, a `time_axis.Mesh` such as `default_mesh`
 gives), the lanes split into contiguous equal groups, one per device, as
 the JAX package's `NamedSharding(mesh, P(axis))` splits its lane axis.
-Each group is a lane solve of its own, with its own backend and CUDA
-graphs on its device, and on the cards one host thread per group drives
-it, so the devices overlap across the host reads each iteration makes
-(the reference's multistart is likewise one thread per guess); on the
-CPU the groups run one after another. The results come back in lane
-order. A mesh may name one device more than once; its groups then share
-that device.
+Each group is a lane solve of its own, with its own bundle, lane step
+and CUDA graphs on its device, and on the cards one host thread per
+group drives it, so the devices overlap across the host reads each
+iteration makes (the reference's multistart is likewise one thread per
+guess); on the CPU the groups run one after another. The results come
+back in lane order. A mesh may name one device more than once; its
+groups then share that device.
+
+The lane step is built once per prepared interior-point bundle (one per
+lane group over a mesh) and kept beside it in the problem's solver cache,
+so a later batched call on the same bundle replays the CUDA graphs the
+first one captured; `SolveStats.lane_steps_built` counts the steps a call
+built. Whatever the step reads that can change from call to call (the
+guesses, their scaling, the parameters, the lane count) reaches it as
+arguments. The lane count is not part of the key: a call with another
+count reuses the step, whose graphs capture that count's shapes once
+beside the others, so the graphs one bundle holds grow with the number of
+distinct lane counts it has seen.
 """
 
 from __future__ import annotations
@@ -168,10 +179,26 @@ def _on(device: torch.device):
     return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
 
 
-def _start(problem, comp, bundle, initial_guesses, options):
-    """The lane states of the guesses on the bundle's backend, and the
-    lane step: (states, step, syncs)."""
+def _lane_step(problem, bundle, options: Options, lane_group: int = 0):
+    """The bundle's lane step, built on the first call that needs it and
+    kept in the problem's solver cache beside the bundle, under the
+    bundle's own key with "lanes" in place of "ipm": whatever drops or
+    re-keys the bundle drops or re-keys its step too. Returns (init,
+    step, steps built: 1 or 0)."""
     *_, funcs, _g_fn, backend = bundle
+    key = ("lanes", *problem._cache_key("ipm", options, backend.device)[1:], lane_group)
+    cached = problem._solver_cache.get(key)
+    if cached is not None:
+        return *cached[:2], 0
+    init, step = make_lane_interior_point(funcs, options, backend=backend)
+    problem._solver_cache[key] = (init, step, backend)
+    return init, step, 1
+
+
+def _start(problem, comp, bundle, initial_guesses, options, lane_group: int = 0):
+    """The lane states of the guesses on the bundle's backend, and the
+    lane step: (states, step, syncs, lane steps built)."""
+    *_, backend = bundle
     params = comp["compiled"].gather_params()
 
     starts, scalings, rows0 = [], [], None
@@ -188,7 +215,7 @@ def _start(problem, comp, bundle, initial_guesses, options):
             starts.append(x0)
             scalings.append(scaling)
     L = len(starts)
-    init, step = make_lane_interior_point(funcs, options, backend=backend)
+    init, step, built = _lane_step(problem, bundle, options, lane_group)
     sc = ScalingArrays(
         f=np.array([s.f for s in scalings]),
         c_e=np.stack([s.c_e for s in scalings]).reshape(L, comp["me"]),
@@ -198,7 +225,7 @@ def _start(problem, comp, bundle, initial_guesses, options):
         np.stack(starts), np.ones((L, comp["mi"])), np.zeros((L, comp["me"])),
         np.ones((L, comp["mi"])), 0.1 * sc.f, params, sc,
     )
-    return states, step, backend.syncs
+    return states, step, backend.syncs, built
 
 
 def solve_ipm_batched(
@@ -216,7 +243,8 @@ def solve_ipm_batched(
     axis, and the final lane-axis `IPMState`; with a mesh, the tuple of
     the groups' final states, one per device. `problem.last_solve_stats`
     then holds the batched iterations (the most any lane took) and the
-    host reads of every group, with the graph captures."""
+    host reads of every group, with the graph captures and the lane steps
+    built."""
     if options is None:
         options = Options()
     if mesh is not None and not isinstance(mesh, Mesh):
@@ -226,10 +254,10 @@ def solve_ipm_batched(
         if mesh is None:
             comp, bundle = problem.prepare_ipm(options)
             before = SolveStats.counters(bundle[-1].syncs)
-            states, step, syncs = _start(problem, comp, bundle, initial_guesses, options)
+            states, step, syncs, built = _start(problem, comp, bundle, initial_guesses, options)
             final = make_batched_runner(step, syncs=syncs, timeout=options.timeout)(states, cap)
             problem.last_solve_stats = SolveStats.since(
-                int(final.iterations.max()), before, syncs)
+                int(final.iterations.max()), before, syncs, lane_steps_built=built)
             return (final.status.cpu().numpy(), final.f.cpu().numpy(), final.x.cpu().numpy(),
                     final)
         return _solve_on_mesh(problem, list(initial_guesses), options, mesh, cap)
@@ -239,9 +267,10 @@ def _solve_on_mesh(problem, guesses: list, options: Options, mesh: Mesh, cap: in
     """`solve_ipm_batched` over the devices of a mesh."""
     lane_groups = _groups(len(guesses), mesh)
     comp = problem._compile()
-    # Every group's solver and start are built here, one after another,
-    # before the threads start: the problem compiles once, and each group
-    # has its own backend and graphs, also where two share a device.
+    # Every group's solver and start are built (or fetched) here, one
+    # after another, before the threads start: the problem compiles once,
+    # and each group has its own backend, lane step and graphs, also where
+    # two share a device.
     starts, reads = [], 0
     _, captures, capture_s = SolveStats.counters()
     for i, (lanes, device) in enumerate(zip(lane_groups, mesh.devices)):
@@ -249,11 +278,12 @@ def _solve_on_mesh(problem, guesses: list, options: Options, mesh: Mesh, cap: in
         with _on(device):
             bundle = problem._prepare_ipm(comp, opts, device, lane_group=i)
             reads += bundle[-1].syncs.count
-            starts.append(_start(problem, comp, bundle, [guesses[j] for j in lanes], opts))
-    states, steps, syncs = zip(*starts)
+            starts.append(_start(problem, comp, bundle, [guesses[j] for j in lanes], opts, i))
+    states, steps, syncs, built = zip(*starts)
     final = make_batched_runner(steps, mesh, syncs=syncs, timeout=options.timeout)(states, cap)
     problem.last_solve_stats = SolveStats.since(
-        max(int(f.iterations.max()) for f in final), (reads, captures, capture_s), *syncs)
+        max(int(f.iterations.max()) for f in final), (reads, captures, capture_s), *syncs,
+        lane_steps_built=sum(built))
     statuses, costs, xs = (
         np.concatenate([getattr(f, k).cpu().numpy() for f in final]) for k in ("status", "f", "x")
     )

@@ -301,7 +301,14 @@ def make_lane_interior_point(funcs: IPMFunctions, options: Options, *, backend):
     `init(x0, s0, y0, z0, mu0, params, scaling)` takes per-lane starting
     points (L, ·), μ₀ (L,) and scaling arrays with a leading lane axis;
     the params are shared. `step(state, run)` advances the lanes of the
-    (L,) mask `run` by one iteration and leaves the others as they are."""
+    (L,) mask `run` by one iteration and leaves the others as they are.
+
+    The pair reads nothing of a call but its arguments, so one pair serves
+    every batched call on the same backend and options, whatever its L
+    (`parallel/batch.py` keeps it per bundle). Its problem evaluations
+    capture one CUDA graph per input signature, so the graphs it holds
+    grow with the number of distinct lane counts it has seen; none is
+    evicted."""
     n = funcs.num_decision_variables
     me = funcs.num_equality_constraints
     mi = funcs.num_inequality_constraints

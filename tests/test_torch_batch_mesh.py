@@ -62,3 +62,31 @@ def test_shard_batch_splits_lanes_in_order():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             default_mesh()
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the groups' threads and graphs run only there")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_a_mesh_on_one_card_builds_each_groups_step_once(cuda_device):
+    """Two lane groups on one card, each driven from a thread of its own:
+    the first call builds one lane step per group and captures its graphs;
+    the second builds none, captures nothing, and answers as the first,
+    bit for bit."""
+    problem, _X, _U = flywheel_problem(N=N)
+    guesses = _guesses(problem._compile()["n"])
+    mesh = Mesh.of(["cuda:0", "cuda:0"], "batch")
+    answers = []
+    for built in (2, 0):
+        status, cost, xs, final = solve_ipm_batched(problem, guesses, Options(device="cuda"),
+                                                    mesh=mesh)
+        stats = problem.last_solve_stats
+        assert status.tolist() == [0] * LANES
+        assert stats.lane_steps_built == built and (stats.graph_captures > 0) == bool(built)
+        answers.append((status, torch.cat([f.iterations for f in final]).cpu().numpy(), cost, xs))
+    for a, b in zip(*answers):
+        np.testing.assert_array_equal(a, b)

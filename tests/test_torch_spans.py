@@ -169,3 +169,27 @@ def test_a_solve_on_the_card_counts_its_captures_and_mirrors_no_range(cuda_devic
 
         on_card = [e.name() for e in events if e.device_type() == DeviceType.CUDA]
         assert on_card and not [n for n in on_card if n.startswith("slp.")]
+
+
+@pytest.mark.cuda
+def test_a_second_lane_solve_on_the_card_replays_every_graph(cuda_device):
+    """The lane solve of a multistart, twice on one problem from the same
+    guesses: the second call builds no lane step and captures nothing,
+    replays the first call's graphs, and answers as it did, bit for bit."""
+    problem, _X, _U = flywheel_problem(N=N)
+    rng = np.random.default_rng(3)
+    guesses = [0.01 * k * rng.standard_normal(problem._compile()["n"]) for k in range(3)]
+    answers = []
+    for first in (True, False):
+        out, _events, ranges = _profiled(
+            lambda: solve_ipm_batched(problem, guesses, Options(device="cuda")), "cuda")
+        stats = problem.last_solve_stats
+        counts = _count(ranges, "slp.")
+        assert out[0].tolist() == [0, 0, 0]
+        assert stats.lane_steps_built == int(first)
+        assert counts["slp.graph_capture"] == stats.graph_captures
+        assert (stats.graph_captures > 0) == first and counts["slp.graph_replay"] > 0
+        statuses, costs, xs, final = out
+        answers.append((statuses, final.iterations.cpu().numpy(), costs, xs))
+    for a, b in zip(*answers):
+        np.testing.assert_array_equal(a, b)
